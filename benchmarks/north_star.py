@@ -1,10 +1,10 @@
 """North-star workload: a 10-million-member GR4J Monte-Carlo calibration.
 
-The reference's flagship use case scaled to TPU (its notebook runs 10k
-members through a serial Python loop): sample 10M parameter sets ON
-DEVICE, evaluate each over a decade of daily forcing with the fused
-Pallas MC objective (one float of HBM traffic per member), and track the
-global best.  The member axis processes in device-sized chunks inside a
+The reference's flagship use case scaled to an accelerator (its notebook
+runs 10k members through a serial Python loop): sample 10M parameter sets
+ON DEVICE, evaluate each over a decade of daily forcing with the fused
+Pallas MC objective (one float of device-memory traffic per member), and
+track the global best.  The member axis processes in device-sized chunks inside a
 host loop; on a mesh the same chunks shard over the ensemble axis.
 
 Run: ``python benchmarks/north_star.py [--members 10000000]``.
@@ -26,9 +26,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.ops import run_gr4j
-    from rrmpg_tpu.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.ops import run_gr4j
+    from rrmpg_jax.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--members", type=int, default=10_000_000)

@@ -37,35 +37,35 @@ PAGES = [
 ]
 
 API_MODULES = [
-    "rrmpg_tpu",
-    "rrmpg_tpu.models",
-    "rrmpg_tpu.models.basemodel",
-    "rrmpg_tpu.models.states",
-    "rrmpg_tpu.ops",
-    "rrmpg_tpu.ops.pallas_gr4j",
-    "rrmpg_tpu.ops.pallas_snow",
-    "rrmpg_tpu.ops.pallas_hbv",
-    "rrmpg_tpu.ops.pallas_linear_scan",
-    "rrmpg_tpu.parallel",
-    "rrmpg_tpu.parallel.mesh",
-    "rrmpg_tpu.parallel.ensemble",
-    "rrmpg_tpu.parallel.regional",
-    "rrmpg_tpu.parallel.distributed",
-    "rrmpg_tpu.tools",
-    "rrmpg_tpu.tools.monte_carlo",
-    "rrmpg_tpu.tools.calibration",
-    "rrmpg_tpu.tools.sce",
-    "rrmpg_tpu.tools.moo",
-    "rrmpg_tpu.tools.mcmc",
-    "rrmpg_tpu.tools.sensitivity",
-    "rrmpg_tpu.tools.uncertainty",
-    "rrmpg_tpu.tools.assimilation",
-    "rrmpg_tpu.utils.metrics",
-    "rrmpg_tpu.utils.signatures",
-    "rrmpg_tpu.utils.array_checks",
-    "rrmpg_tpu.utils.plot_utils",
-    "rrmpg_tpu.data.camelsloader",
-    "rrmpg_tpu.config",
+    "rrmpg_jax",
+    "rrmpg_jax.models",
+    "rrmpg_jax.models.basemodel",
+    "rrmpg_jax.models.states",
+    "rrmpg_jax.ops",
+    "rrmpg_jax.ops.pallas_gr4j",
+    "rrmpg_jax.ops.pallas_snow",
+    "rrmpg_jax.ops.pallas_hbv",
+    "rrmpg_jax.ops.fused",
+    "rrmpg_jax.parallel",
+    "rrmpg_jax.parallel.mesh",
+    "rrmpg_jax.parallel.ensemble",
+    "rrmpg_jax.parallel.regional",
+    "rrmpg_jax.parallel.distributed",
+    "rrmpg_jax.tools",
+    "rrmpg_jax.tools.monte_carlo",
+    "rrmpg_jax.tools.calibration",
+    "rrmpg_jax.tools.sce",
+    "rrmpg_jax.tools.moo",
+    "rrmpg_jax.tools.mcmc",
+    "rrmpg_jax.tools.sensitivity",
+    "rrmpg_jax.tools.uncertainty",
+    "rrmpg_jax.tools.assimilation",
+    "rrmpg_jax.utils.metrics",
+    "rrmpg_jax.utils.signatures",
+    "rrmpg_jax.utils.array_checks",
+    "rrmpg_jax.utils.plot_utils",
+    "rrmpg_jax.data.camelsloader",
+    "rrmpg_jax.config",
 ]
 
 TEMPLATE = """<!DOCTYPE html>
@@ -73,7 +73,7 @@ TEMPLATE = """<!DOCTYPE html>
 <head>
 <meta charset="utf-8">
 <meta name="viewport" content="width=device-width, initial-scale=1">
-<title>{title} — rrmpg-tpu</title>
+<title>{title} — rrmpg-jax</title>
 <style>
 :root {{ --fg: #1c1e21; --muted: #5f6368; --accent: #0b57d0;
          --bg: #ffffff; --side: #f6f8fa; --border: #d0d7de; }}
@@ -118,7 +118,7 @@ blockquote {{ border-left: 3px solid var(--border); margin-left: 0;
 </head>
 <body>
 <nav>
-<h1>rrmpg-tpu</h1>
+<h1>rrmpg-jax</h1>
 {nav}
 </nav>
 <main>

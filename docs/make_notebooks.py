@@ -2,12 +2,12 @@
 
 The reference ships its tutorials as ``.ipynb`` rendered into Sphinx RST
 (``/root/reference/docs/source/index.rst:1-27``); this repo's canonical
-tutorial source is markdown with captured TPU output
+tutorial source is markdown with captured output
 (``docs/tutorials/*.md``).  This script closes the format gap: each
 tutorial becomes ``docs/notebooks/<name>.ipynb`` where ``python`` fences
 are code cells and a ``text`` fence that immediately follows one is
 attached to it as captured stream output (so the notebook shows real
-device results without requiring a TPU to re-execute).
+device results without requiring a card to re-execute).
 
 Run from the repo root:  ``python docs/make_notebooks.py``
 The generated notebooks are committed; re-run after editing a tutorial.
@@ -18,7 +18,7 @@ hidden blocks become collapsed setup cells defining the variables the
 visible cells use -- and can be executed for real with nbclient,
 replacing the pasted outputs with live ones.  ``--out-dir`` redirects
 the written notebooks (CI executes into a temp dir so the committed
-notebooks keep their captured TPU outputs; see
+notebooks keep their captured outputs; see
 ``tests/test_examples.py``).
 """
 
@@ -157,7 +157,7 @@ def main(argv=None):
     parser.add_argument("--out-dir", default=None,
                         help="write notebooks here instead of "
                              "docs/notebooks (use with --execute to "
-                             "keep the committed TPU outputs)")
+                             "keep the committed outputs)")
     args = parser.parse_args(argv)
 
     root = pathlib.Path(__file__).parent

@@ -10,10 +10,10 @@ import os
 
 import numpy as np
 
-from rrmpg_tpu.data import CAMELSLoader
-from rrmpg_tpu.models import CemaneigeGR4J
-from rrmpg_tpu.tools import monte_carlo
-from rrmpg_tpu.utils import calc_nse
+from rrmpg_jax.data import CAMELSLoader
+from rrmpg_jax.models import CemaneigeGR4J
+from rrmpg_jax.tools import monte_carlo
+from rrmpg_jax.utils import calc_nse
 
 # CI fast mode (tests/test_examples.py): tiny sizes so the example
 # executes end-to-end in seconds; the didactic sizes are the defaults.

@@ -19,12 +19,12 @@ import os
 import numpy as np
 import pandas as pd
 
-from rrmpg_tpu.models import (
+from rrmpg_jax.models import (
     CemaneigeGR4JIce,
     CemaneigeHystGR4J,
     CemaneigeHystGR4JIce,
 )
-from rrmpg_tpu.utils import calc_kge
+from rrmpg_jax.utils import calc_kge
 
 ELEVATION = [2277.84423828125, 2641.563720703125, 2845.09521484375,
              3002.329833984375, 3227.36669921875]
@@ -40,7 +40,7 @@ FAST = os.environ.get("RRMPG_EXAMPLE_FAST") == "1"
 
 def main():
     import jax
-    engine = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
+    engine = "pallas" if jax.devices()[0].platform == "gpu" else "xla"
     fit_kw = dict(maxiter=3) if FAST else {}
 
     path = os.path.join(os.path.dirname(__file__), "data",

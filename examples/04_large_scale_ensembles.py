@@ -1,4 +1,4 @@
-"""Large-scale sharded ensembles: the TPU-native workloads.
+"""Large-scale sharded ensembles: the batched workloads.
 
 Demonstrates what has no counterpart in the reference package:
 
@@ -9,7 +9,7 @@ Demonstrates what has no counterpart in the reference package:
 
 Runs on any device count -- a CPU with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` behaves like an
-8-chip slice; on a real multi-chip mesh the same code shards over ICI.
+8-device host; on several GPUs the same code shards over the cards.
 """
 
 import os
@@ -18,9 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rrmpg_tpu.models import GR4J
-from rrmpg_tpu.ops import run_gr4j
-from rrmpg_tpu.parallel import (
+from rrmpg_jax.models import GR4J
+from rrmpg_jax.ops import run_gr4j
+from rrmpg_jax.parallel import (
     default_mesh,
     ensemble_catchment_mesh,
     ensemble_objective,
@@ -54,7 +54,7 @@ def main():
 
     # --- fused-kernel calibration with checkpointing ---
     ckpt = "/tmp/gr4j_fit.npz"
-    engine = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
+    engine = "pallas" if jax.devices()[0].platform == "gpu" else "xla"
     res = model.fit(qobs, prec, etp, seed=0, engine=engine, tol=1e-4,
                     maxiter=10 if FAST else 1000,
                     checkpoint_path=ckpt, checkpoint_every=25)

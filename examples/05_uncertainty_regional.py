@@ -8,7 +8,7 @@ Capabilities beyond the reference package:
 * a regional (catchment x member) GR4J objective sweep evaluated by the
   fused Pallas kernel -- one float of HBM traffic per pair.
 
-Captured output (one TPU v5e chip)::
+Captured output::
 
     GLUE: 9731 behavioral of 20k (NSE > 0.3); 90% band covers 77.1% of
     observations; best NSE 0.797
@@ -20,9 +20,9 @@ import os
 
 import numpy as np
 
-from rrmpg_tpu.data import CAMELSLoader
-from rrmpg_tpu.models import CemaneigeGR4J, GR4J
-from rrmpg_tpu.tools import glue_weights, monte_carlo, prediction_limits
+from rrmpg_jax.data import CAMELSLoader
+from rrmpg_jax.models import CemaneigeGR4J, GR4J
+from rrmpg_jax.tools import glue_weights, monte_carlo, prediction_limits
 
 FAST = os.environ.get("RRMPG_EXAMPLE_FAST") == "1"
 
@@ -54,7 +54,7 @@ def main():
           f"best NSE {np.nanmax(mc['nse']):.3f}")
 
     # --- Regional fused sweep: catchment x member cross product ---
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     # Synthesize a small region by perturbing the basin's forcing.
     rng = np.random.default_rng(0)
@@ -65,7 +65,7 @@ def main():
     params = {k: np.asarray(v, np.float32)
               for k, v in model.sample_params(jax.random.PRNGKey(1),
                                               N).items()}
-    engine = ("pallas" if jax.devices()[0].platform == "tpu" else "xla")
+    engine = "pallas" if jax.devices()[0].platform == "gpu" else "xla"
     losses = np.asarray(regional_gr4j_objective(
         prec_ct, etp_ct, qobs_ct, 0.3, 0.3, params, engine=engine))
     best = losses.argmin(axis=1)

@@ -7,7 +7,7 @@ states) carries across segment boundaries exactly: calibrate on history,
 then step the model forward day by day (or batch by batch) as new
 forcing arrives, without ever re-running the past.
 
-Captured output (one TPU v5e chip)::
+Captured output::
 
     unbroken vs 5 chained segments: max |dq| = 0.00e+00
     day-by-day loop (30 single-step continuations): max |dq| vs unbroken = 0.00e+00
@@ -18,7 +18,7 @@ Captured output (one TPU v5e chip)::
 
 import numpy as np
 
-from rrmpg_tpu.ops import GR4JState, gr4j_initial_state, run_gr4j_warm
+from rrmpg_jax.ops import GR4JState, gr4j_initial_state, run_gr4j_warm
 
 
 def main():
@@ -69,7 +69,7 @@ def main():
     # compositions, whose bundles also carry the original series'
     # data-dependent snow-cover constants.
     # ------------------------------------------------------------------
-    from rrmpg_tpu.models import GR4J, CemaneigeGR4J
+    from rrmpg_jax.models import GR4J, CemaneigeGR4J
 
     model = GR4J(params=params)
     np_prec, np_etp = np.asarray(prec), np.asarray(etp)

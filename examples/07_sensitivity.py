@@ -7,7 +7,7 @@ of GR4J on five years of CAMELS forcing takes seconds, and the
 calibration that follows can use either optimizer family
 (``method='de'`` / ``method='sce'``).
 
-Captured output (one TPU v5e chip)::
+Captured output::
 
     Morris screen (64 trajectories, 320 runs):
       x2    mu* = 0.236  sigma = 0.336
@@ -40,11 +40,11 @@ FAST = os.environ.get("RRMPG_EXAMPLE_FAST") == "1"
 def main():
     import jax.numpy as jnp
 
-    from rrmpg_tpu.data import CAMELSLoader
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.ops import run_gr4j
-    from rrmpg_tpu.tools import morris_screening, sobol_indices
-    from rrmpg_tpu.utils.metrics import mse
+    from rrmpg_jax.data import CAMELSLoader
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.ops import run_gr4j
+    from rrmpg_jax.tools import morris_screening, sobol_indices
+    from rrmpg_jax.utils.metrics import mse
 
     df = CAMELSLoader().load_basin('01031500')
     T = 365 if FAST else 1825  # five hydrological years

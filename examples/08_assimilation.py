@@ -4,9 +4,9 @@ No reference counterpart -- the reference cannot even resume a
 simulation, let alone correct its states against observations.  This
 twin experiment shows the full operational loop on CAMELS forcing:
 truth run -> biased ensemble -> forecast/analysis cycling with the
-stochastic EnKF (rrmpg_tpu.tools.assimilation) -> forecast errors.
+stochastic EnKF (rrmpg_jax.tools.assimilation) -> forecast errors.
 
-Captured output (one TPU v5e chip)::
+Captured output::
 
     ensemble: 256 members, biased-dry start (truth s=0.85, ensemble 0.2)
     free-run  forecast RMSE (day 48-240): 1.0521
@@ -26,9 +26,9 @@ import numpy as np
 def main():
     import jax
 
-    from rrmpg_tpu.data import CAMELSLoader
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.tools import assimilation_cycle, perturb_state
+    from rrmpg_jax.data import CAMELSLoader
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.tools import assimilation_cycle, perturb_state
 
     df = CAMELSLoader().load_basin('01031500')
     T, window = 252, 12

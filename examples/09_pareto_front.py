@@ -4,13 +4,13 @@ The reference's ``fit_Q_SCA`` collapses the discharge error and the
 snow-cover error into one number at fixed weights (0.75 / 0.05,
 ``cemaneigehystgr4j.py:663-689``) -- one point on a tradeoff it never
 shows.  ``fit_Q_SCA(pareto=True)`` runs the same two objectives through
-the device-resident NSGA-II (``rrmpg_tpu.tools.moo``) on the real
+the device-resident NSGA-II (``rrmpg_jax.tools.moo``) on the real
 Alpine catchment of the hysteresis tutorial and returns the entire
 front: every front member is a defensible calibration, and the spread
 quantifies how much discharge accuracy a snow-cover-faithful model
 costs (and vice versa).
 
-Captured output (one TPU v5e chip, 77,056 evaluations)::
+Captured output (77,056 evaluations)::
 
     front: 256 non-dominated members from a 256-member population
     discharge-first end:  1-KGE_Q = 0.110, SCA loss = 5.396
@@ -33,8 +33,8 @@ import os
 import numpy as np
 import pandas as pd
 
-from rrmpg_tpu.models import CemaneigeHystGR4J
-from rrmpg_tpu.utils import calc_kge
+from rrmpg_jax.models import CemaneigeHystGR4J
+from rrmpg_jax.utils import calc_kge
 
 ELEVATION = [2277.84423828125, 2641.563720703125, 2845.09521484375,
              3002.329833984375, 3227.36669921875]

@@ -1,17 +1,17 @@
 """Bayesian parameter inference on a real basin (DE-MC posterior).
 
 GLUE (example 05) weights a Monte-Carlo ensemble informally; this
-example runs formal MCMC instead: DE-MC (``rrmpg_tpu.tools.demc_sample``,
+example runs formal MCMC instead: DE-MC (``rrmpg_jax.tools.demc_sample``,
 the DREAM-family algorithm) samples the joint posterior of GR4J's four
 parameters *and* an unknown observation-noise scale on five years of
 CAMELS basin 01031500, giving calibrated credible intervals.  All
 chains step together as one batched device evaluation and the entire
-sampler is a single jitted scan, so the chain count rides the VPU's
-lane width for free.
+sampler is a single jitted scan, so more chains widen one batched
+program rather than adding steps.
 
-Captured output (one TPU v5e chip)::
+Captured output::
 
-    acceptance 0.24, max R-hat 1.007 (128 chains x 8000 steps, 369 s)
+    acceptance 0.24, max R-hat 1.007 (128 chains x 8000 steps)
     posterior (median [2.5%, 97.5%]):
       x1    445.4 [382.2, 513.3]
       x2    0.864 [0.638, 1.096]
@@ -24,9 +24,8 @@ by five years of data; the posterior sigma^2 ~ 6.56 agrees with the DE
 fit's MSE 6.53 on the same period (example 07) -- the residual scale
 IS the model error, now with calibrated uncertainty around every
 parameter instead of one point estimate.  Chain-count note: 16 chains
-leave the VPU mostly idle and had not converged at 6000 steps
-(R-hat 2.6); 128 chains cost the same wall-clock per step and converge
-cleanly -- on TPU, more chains are free mixing.
+had not converged at 6000 steps (R-hat 2.6); 128 chains converge
+cleanly.
 """
 
 import os
@@ -41,10 +40,10 @@ def main():
 
     import jax.numpy as jnp
 
-    from rrmpg_tpu.data import CAMELSLoader
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.ops import run_gr4j
-    from rrmpg_tpu.tools import demc_sample
+    from rrmpg_jax.data import CAMELSLoader
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.ops import run_gr4j
+    from rrmpg_jax.tools import demc_sample
 
     df = CAMELSLoader().load_basin('01031500')
     T = 365 if FAST else 1825

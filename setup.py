@@ -1,9 +1,9 @@
 from setuptools import find_packages, setup
 
 setup(
-    name="rrmpg-tpu",
+    name="rrmpg-jax",
     version="0.5.0",
-    description=("TPU-native rainfall-runoff modeling framework "
+    description=("Rainfall-runoff modeling framework for accelerators "
                  "(JAX / XLA / Pallas)"),
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
@@ -11,18 +11,19 @@ setup(
     python_requires=">=3.11",
     packages=find_packages(exclude=["tests", "benchmarks"]),
     package_data={
-        "rrmpg_tpu.data": ["camels/*.txt"],
-        "rrmpg_tpu.native": ["oracle.cpp"],
+        "rrmpg_jax.data": ["camels/*.txt"],
+        "rrmpg_jax.native": ["oracle.cpp"],
     },
     include_package_data=True,
     install_requires=[
         "jax",
         "numpy",
-        "pandas",
+        "scipy",
         "optax",
     ],
     extras_require={
-        "plot": ["matplotlib"],
+        "data": ["pandas"],
+        "plot": ["matplotlib", "pandas"],
         "test": ["pytest", "scipy"],
         "multihost": ["orbax-checkpoint"],
     },

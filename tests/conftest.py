@@ -2,15 +2,18 @@
 
 Golden-data validation runs against the reference's float64 Excel/MATLAB
 trajectories, so the DEFAULT lane forces x64 on a CPU mesh (8 virtual
-devices to exercise the sharding paths without TPU hardware).
+devices to exercise the sharding paths without accelerator hardware).
 
-TPU production runs use float32, and the driver's multi-chip dry run
-executes under default-f32 -- a precision the x64 lane never touches
-(round 2 shipped a red driver artifact that 356 x64-green tests missed).
-Setting ``RRMPG_TEST_DTYPE=float32`` switches the suite to the
-production dtype; tests whose assertions genuinely need float64 (tight
-golden tolerances, bit-parity oracles) carry ``@pytest.mark.f64only``
-and are skipped in that lane.  CI runs both lanes.
+Large ensembles run in float32, and the multi-device dry run executes
+under default-f32 -- a precision the x64 lane never touches.  Setting
+``RRMPG_TEST_DTYPE=float32`` switches the suite to that dtype; tests
+whose assertions genuinely need float64 (tight golden tolerances,
+bit-parity oracles) carry ``@pytest.mark.f64only`` and are skipped in
+that lane.  CI runs both lanes.
+
+Checks that need the GPU carry ``@pytest.mark.gpu`` and the ``gpu``
+fixture of their module, which skips them here; ``python chip_smoke.py``
+runs them on the card.
 """
 
 import os
@@ -62,9 +65,12 @@ def _host_cache_tag():
     return hashlib.sha1(sig.encode()).hexdigest()[:12]
 
 
-_cache_dir = os.path.join(os.path.dirname(__file__), ".jax_cache",
-                          _host_cache_tag())
-jax.config.update("jax_compilation_cache_dir", _cache_dir)
+# A cache directory placed from outside (JAX_COMPILATION_CACHE_DIR) is
+# used as it is; JAX reads the variable itself.
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _cache_dir = os.path.join(os.path.dirname(__file__), ".jax_cache",
+                              _host_cache_tag())
+    jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 # Cache-WRITE exposure is the second identified crash mechanism: a
 # round-4 run with PYTHONFAULTHANDLER=1 caught the long-standing

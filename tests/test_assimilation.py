@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools.assimilation import (
+from rrmpg_jax.tools.assimilation import (
     CONSTANT_FIELDS,
     assimilation_cycle,
     enkf_update,
@@ -151,7 +151,7 @@ class TestEnKFLinearGaussian:
     def test_frozen_matches_exact_leaf_names(self):
         """frozen={'s'} on a GR4J bundle must not also freeze
         'pr_history' (substring over-freezing regression)."""
-        from rrmpg_tpu.ops.gr4j import GR4JState
+        from rrmpg_jax.ops.gr4j import GR4JState
 
         n = 32
         rng = np.random.default_rng(0)
@@ -336,7 +336,7 @@ class TestParticleFilter:
         """method='pf' without estimate_params: a heterogeneous
         parameter ensemble must stay aligned with its particles after
         resampling (params permute, values unchanged as a set)."""
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(5)
         T, window, n = 48, 12, 32
@@ -366,7 +366,7 @@ class TestParticleFilter:
     @pytest.mark.slow
     def test_pf_cycle_beats_free_run(self):
         """Twin experiment via method='pf' (mirrors the EnKF one)."""
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(42)
         T, window, n = 240, 12, 512
@@ -400,7 +400,7 @@ class TestParticleFilter:
         assert diags.ess is not None and len(diags.ess) > 0
 
     def test_cycle_method_validation(self):
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         model = GR4J(params={'x1': 300.0, 'x2': 1.0, 'x3': 90.0,
                              'x4': 1.7})
@@ -424,7 +424,7 @@ class TestGR4JTwinExperiment:
         window-end discharge must reduce the forecast discharge error
         relative to the free-running biased ensemble.
         """
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(42)
         T = 240
@@ -488,7 +488,7 @@ class TestGR4JTwinExperiment:
         prior around 0.  Joint cycling must contract the parameter
         ensemble toward the truth value.
         """
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(3)
         T, window, n = 240, 12, 256
@@ -554,7 +554,7 @@ class TestGR4JTwinExperiment:
         assert (new_params['k1'] <= 4.0).all()
 
     def test_estimate_params_requires_params(self):
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         model = GR4J(params={'x1': 300.0, 'x2': 1.0, 'x3': 90.0,
                              'x4': 1.7})
@@ -565,7 +565,7 @@ class TestGR4JTwinExperiment:
                                estimate_params=True)
 
     def test_cycle_input_validation(self):
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         model = GR4J(params={'x1': 300.0, 'x2': 1.0, 'x3': 90.0,
                              'x4': 1.7})
@@ -587,7 +587,7 @@ class TestScanBackend:
     numerically equivalent to the host loop, cycle for cycle."""
 
     def _gr4j_setup(self, n=32, T=240, window=12):
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(42)
         prec = rng.gamma(0.8, 6.0, T)
@@ -708,7 +708,7 @@ class TestScanBackend:
 
     @pytest.mark.slow
     def test_snow_composition_scan_equals_host(self):
-        from rrmpg_tpu.models import CemaneigeHystGR4JIce
+        from rrmpg_jax.models import CemaneigeHystGR4JIce
 
         rng = np.random.default_rng(5)
         T, window, n = 120, 12, 16
@@ -755,7 +755,7 @@ class TestScanBackend:
         """The scan backend must actually assimilate: forecast RMSE of
         the cycled ensemble beats the free-running biased ensemble (the
         same twin contract as the host-path test)."""
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(42)
         T, window, n = 240, 12, 128

@@ -7,8 +7,8 @@ Mirrors the reference's ``TestBaseModelFunctions``
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import ABCModel
-from rrmpg_tpu.models.basemodel import BaseModel
+from rrmpg_jax.models import ABCModel
+from rrmpg_jax.models.basemodel import BaseModel
 
 
 @pytest.fixture

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools import (
+from rrmpg_jax.tools import (
     differential_evolution,
     load_checkpoint,
     save_checkpoint,
@@ -65,7 +65,7 @@ def test_de_chunked_equals_monolithic():
 
 def test_orbax_roundtrip(tmp_path):
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.checkpoint import (
+    from rrmpg_jax.tools.checkpoint import (
         load_checkpoint_orbax,
         save_checkpoint_orbax,
     )
@@ -84,8 +84,8 @@ def test_de_checkpoint_resume_with_mesh(tmp_path):
     # The sharded-population resume branch: interrupted evolution on a
     # mesh must continue bit-identically to an uninterrupted run.
     import jax.numpy as jnp
-    from rrmpg_tpu.parallel.mesh import default_mesh
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.parallel.mesh import default_mesh
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     mesh = default_mesh()
     target = jnp.asarray([0.2, -0.8, 1.5, 0.4])
@@ -111,7 +111,7 @@ def test_de_checkpoint_resume_with_mesh(tmp_path):
 def test_de_orbax_checkpoint_resume(tmp_path):
     # Non-.npz checkpoint paths route through the Orbax backend.
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     target = jnp.asarray([0.5, -0.5])
     bounds = [(-2, 2), (-2, 2)]
@@ -135,8 +135,8 @@ def test_state_bundle_roundtrip(tmp_path):
     loaded bundle drives a warm continuation identically."""
     import jax.numpy as jnp
 
-    from rrmpg_tpu.models import GR4J, CemaneigeGR4J
-    from rrmpg_tpu.tools.checkpoint import load_state, save_state
+    from rrmpg_jax.models import GR4J, CemaneigeGR4J
+    from rrmpg_jax.tools.checkpoint import load_state, save_state
 
     rng = np.random.default_rng(0)
     T, n = 60, 4
@@ -183,6 +183,6 @@ def test_state_bundle_roundtrip(tmp_path):
     with pytest.raises(TypeError, match="state bundle"):
         save_state(tmp_path / "x.npz", {"not": "a bundle"})
     with pytest.raises(ValueError, match="bundle"):
-        from rrmpg_tpu.tools.checkpoint import save_checkpoint
+        from rrmpg_jax.tools.checkpoint import save_checkpoint
         save_checkpoint(tmp_path / "plain.npz", {'a': np.ones(3)})
         load_state(tmp_path / "plain.npz")

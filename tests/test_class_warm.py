@@ -2,14 +2,14 @@
 
 The ops-level warm kernels are covered by tests/test_warm_state.py; these
 tests pin the class-API layer on top -- state bundles
-(:mod:`rrmpg_tpu.models.states`), cold-start ``return_final_state``,
+(:mod:`rrmpg_jax.models.states`), cold-start ``return_final_state``,
 warm-continuation chaining, batched-ensemble states, and the guard rails.
 """
 
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import (
+from rrmpg_jax.models import (
     ABCModel,
     ABCState,
     Cemaneige,
@@ -307,7 +307,7 @@ def test_sharded_warm_matches_unsharded(forcing, num):
     """Mesh-sharded forecast ensembles (the probabilistic-forecast path)
     equal the unsharded run, including the returned final states and the
     padding case where N is not a multiple of the shard count."""
-    from rrmpg_tpu.parallel.mesh import default_mesh
+    from rrmpg_jax.parallel.mesh import default_mesh
 
     mesh = default_mesh()
     model = GR4J()
@@ -331,7 +331,7 @@ def test_sharded_warm_matches_unsharded(forcing, num):
 
 
 def test_sharded_warm_snow_composition(forcing):
-    from rrmpg_tpu.parallel.mesh import default_mesh
+    from rrmpg_jax.parallel.mesh import default_mesh
 
     mesh = default_mesh()
     model = CemaneigeGR4J()
@@ -566,7 +566,7 @@ def test_warm_x4_beyond_state_depth_actionable_error(forcing):
 def test_monte_carlo_composes_with_initial_state(forcing):
     """monte_carlo forwards simulate kwargs, so an ensemble forecast from
     one carried analysis state (broadcast to all members) just works."""
-    from rrmpg_tpu.tools import monte_carlo
+    from rrmpg_jax.tools import monte_carlo
 
     truth = GR4J(params={'x1': 320., 'x2': 1.1, 'x3': 90., 'x4': 2.3})
     q_full, st = truth.simulate(forcing['prec'], forcing['etp'],
@@ -635,7 +635,7 @@ def test_class_warm_fuzz_all_models(seed):
 
 # ---------------------------------------------------------------------------
 # Pallas forecast mode: engine='pallas' carries state through the fused
-# kernels (VMEM-resident stores/UH registers/snowpack enter and exit);
+# kernels (stores/UH registers/snowpack enter and exit);
 # parity and split-invariance against the XLA path, plus cross-engine
 # state handoff.
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ match compositions of the independent C++ oracle kernels.
 import numpy as np
 import pytest
 
-from rrmpg_tpu import native
-from rrmpg_tpu.ops import (
+from rrmpg_jax import native
+from rrmpg_jax.ops import (
     run_cemaneigegr4j,
     run_cemaneigegr4jice,
     run_cemaneigehystgr4j,

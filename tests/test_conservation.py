@@ -13,16 +13,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops.abc import run_abcmodel, run_abcmodel_warm
-from rrmpg_tpu.ops.cemaneige import (
+from rrmpg_jax.ops.abc import run_abcmodel, run_abcmodel_warm
+from rrmpg_jax.ops.cemaneige import (
     run_cemaneige,
     run_cemaneige_warm,
     run_cemaneigehyst,
     run_cemaneigehyst_warm,
 )
-from rrmpg_tpu.ops.gr4j import run_gr4j, run_gr4j_warm
-from rrmpg_tpu.ops.hbvedu import run_hbvedu
-from rrmpg_tpu.ops.uh import s_curve1, s_curve2
+from rrmpg_jax.ops.gr4j import run_gr4j, run_gr4j_warm
+from rrmpg_jax.ops.hbvedu import run_hbvedu
+from rrmpg_jax.ops.uh import s_curve1, s_curve2
 
 from lane import tol
 

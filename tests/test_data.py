@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.data import CAMELSLoader
+from rrmpg_jax.data import CAMELSLoader
 
 
 def test_basin_numbers():
@@ -38,7 +38,7 @@ def test_camels_custom_directory(tmp_path):
     import shutil
     from pathlib import Path
 
-    src = Path('rrmpg_tpu/data/camels')
+    src = Path('rrmpg_jax/data/camels')
     # Build a fake user CAMELS dir with two basins (copies of the bundled
     # one under different ids).
     for basin in ('01031500', '99999999'):

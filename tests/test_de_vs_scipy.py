@@ -19,9 +19,9 @@ def test_de_matches_scipy_quality_on_gr4j_recovery():
     import jax.numpy as jnp
     from scipy.optimize import differential_evolution as scipy_de
 
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.ops import run_gr4j
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.ops import run_gr4j
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     rng = np.random.default_rng(42)
     T = 730

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import Cemaneige, CemaneigeGR4J, GR4J
-from rrmpg_tpu.parallel import default_mesh
-from rrmpg_tpu.tools import monte_carlo
+from rrmpg_jax.models import Cemaneige, CemaneigeGR4J, GR4J
+from rrmpg_jax.parallel import default_mesh
+from rrmpg_jax.tools import monte_carlo
 
 from lane import tol
 
@@ -68,8 +68,8 @@ def test_fit_loss_metric_kge():
     synthetic truth drives 1-KGE to ~0, and the optimum differs from
     the MSE fit's objective value scale (sanity that the loss actually
     switched)."""
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.utils import calc_kge
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.utils import calc_kge
 
     rng = np.random.default_rng(0)
     T = 300
@@ -99,7 +99,7 @@ def test_fit_loss_metric_kge():
 
 def test_fit_loss_metric_all_classes_smoke():
     """loss_metric='kge' reaches the optimizer on every non-hyst class."""
-    from rrmpg_tpu.models import ABCModel, Cemaneige, CemaneigeGR4J, HBVEdu
+    from rrmpg_jax.models import ABCModel, Cemaneige, CemaneigeGR4J, HBVEdu
 
     rng = np.random.default_rng(1)
     T = 120
@@ -137,9 +137,9 @@ def test_fused_snow_fit_kge_matches_xla():
     equals the XLA objective on identical candidates."""
     import jax.numpy as jnp
 
-    from rrmpg_tpu.models import CemaneigeGR4J
-    from rrmpg_tpu.ops.compositions import run_cemaneigegr4j
-    from rrmpg_tpu.utils.metrics import kge as jkge
+    from rrmpg_jax.models import CemaneigeGR4J
+    from rrmpg_jax.ops.compositions import run_cemaneigegr4j
+    from rrmpg_jax.utils.metrics import kge as jkge
 
     rng = np.random.default_rng(2)
     T = 120

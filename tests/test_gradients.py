@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops import (
+from rrmpg_jax.ops import (
     run_abcmodel,
     run_cemaneigegr4j,
     run_gr4j,

@@ -9,9 +9,9 @@ kernels.
 import numpy as np
 import pytest
 
-from rrmpg_tpu import native
-from rrmpg_tpu.models import CemaneigeGR4JIce
-from rrmpg_tpu.ops import (
+from rrmpg_jax import native
+from rrmpg_jax.models import CemaneigeGR4JIce
+from rrmpg_jax.ops import (
     calculate_solid_fraction,
     extrapolate_precipitation,
     extrapolate_temperature,

@@ -13,7 +13,7 @@ import pytest
 
 from lane import tol
 
-from rrmpg_tpu.utils import metrics as M
+from rrmpg_jax.utils import metrics as M
 
 
 def _gapped(T=300, gaps=40, seed=0):
@@ -124,7 +124,7 @@ def _write_camels_basin(directory, basin, T=800, q_sentinel_rows=(),
 
 
 def test_loader_masks_sentinels(tmp_path):
-    from rrmpg_tpu.data import CAMELSLoader
+    from rrmpg_jax.data import CAMELSLoader
 
     # Sentinels inside the hydrological-year window (row >= Oct 1 1980).
     _write_camels_basin(tmp_path, "02002000", T=800,
@@ -137,7 +137,7 @@ def test_loader_masks_sentinels(tmp_path):
 
 
 def test_load_basins_outer_join_pads_observations(tmp_path):
-    from rrmpg_tpu.data import CAMELSLoader
+    from rrmpg_jax.data import CAMELSLoader
 
     # Same forcing period, but basin B's discharge has in-record gaps.
     _write_camels_basin(tmp_path, "02002000", T=800)
@@ -155,7 +155,7 @@ def test_load_basins_outer_join_pads_observations(tmp_path):
 
 
 def test_load_basins_outer_join_rejects_forcing_gaps(tmp_path):
-    from rrmpg_tpu.data import CAMELSLoader
+    from rrmpg_jax.data import CAMELSLoader
 
     # Basin B starts 200 days later: outer join must refuse to pad the
     # forcing columns with NaN.
@@ -189,12 +189,12 @@ def _gr4j_inputs(T=250, N=6, gaps=30, seed=4):
 
 
 def test_gr4j_fused_masked_matches_xla():
-    from rrmpg_tpu.ops.gr4j import run_gr4j
-    from rrmpg_tpu.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
+    from rrmpg_jax.ops.gr4j import run_gr4j
+    from rrmpg_jax.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
 
     prec, etp, qobs, params = _gr4j_inputs()
     losses = gr4j_ensemble_mse_pallas(
-        prec, etp, qobs, 0.3, 0.3, params, t_tile=128, num_uh1=3,
+        prec, etp, qobs, 0.3, 0.3, params, num_uh1=3,
         num_uh2=7, interpret=True, masked=True)
     valid = np.isfinite(qobs)
     for i in range(losses.shape[0]):
@@ -205,13 +205,13 @@ def test_gr4j_fused_masked_matches_xla():
 
 
 def test_gr4j_fused_masked_stats_metrics():
-    from rrmpg_tpu.ops.gr4j import run_gr4j
-    from rrmpg_tpu.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
-    from rrmpg_tpu.ops.pallas_snow import losses_from_stats
+    from rrmpg_jax.ops.gr4j import run_gr4j
+    from rrmpg_jax.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
+    from rrmpg_jax.ops.pallas_snow import losses_from_stats
 
     prec, etp, qobs, params = _gr4j_inputs(seed=5)
     stats = gr4j_ensemble_mse_pallas(
-        prec, etp, qobs, 0.3, 0.3, params, t_tile=128, num_uh1=3,
+        prec, etp, qobs, 0.3, 0.3, params, num_uh1=3,
         num_uh2=7, interpret=True, stats=True, masked=True)
     got = losses_from_stats(stats, jnp.asarray(qobs))
     valid = np.isfinite(qobs)
@@ -231,8 +231,8 @@ def test_gr4j_regional_masked_ragged_records():
     # Two catchments whose discharge records differ in length (NaN
     # padding) plus in-record gaps: per-catchment valid-count
     # normalization.
-    from rrmpg_tpu.ops.gr4j import run_gr4j
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.ops.gr4j import run_gr4j
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     rng = np.random.default_rng(6)
     C, T, N = 2, 220, 5
@@ -246,7 +246,7 @@ def test_gr4j_regional_masked_ragged_records():
               'x3': jnp.asarray(rng.uniform(20, 300, N)),
               'x4': jnp.asarray(rng.uniform(1.1, 2.9, N))}
     for engine, kw in (("xla", {}),
-                       ("pallas", dict(interpret=True, t_tile=128,
+                       ("pallas", dict(interpret=True, 
                                        num_uh1=3, num_uh2=7))):
         losses = np.asarray(regional_gr4j_objective(
             prec, etp, qobs, 0.3, 0.3, params, engine=engine, **kw))
@@ -261,8 +261,8 @@ def test_gr4j_regional_masked_ragged_records():
 
 
 def test_hbv_fused_masked_matches_subset():
-    from rrmpg_tpu.ops.hbvedu import run_hbvedu
-    from rrmpg_tpu.ops.pallas_hbv import hbv_ensemble_mse_pallas
+    from rrmpg_jax.ops.hbvedu import run_hbvedu
+    from rrmpg_jax.ops.pallas_hbv import hbv_ensemble_mse_pallas
 
     rng = np.random.default_rng(7)
     T, N = 250, 5
@@ -286,7 +286,7 @@ def test_hbv_fused_masked_matches_subset():
               'L': jnp.asarray(rng.uniform(0, 7, N))}
     losses = hbv_ensemble_mse_pallas(
         temp, prec, month, pe_m, t_m, qobs, 0.0, 100.0, 3.0, 10.0,
-        params, t_tile=128, interpret=True, masked=True)
+        params, interpret=True, masked=True)
     valid = np.isfinite(qobs)
     i = 1
     p = {k: float(v[i]) for k, v in params.items()}
@@ -298,8 +298,8 @@ def test_hbv_fused_masked_matches_subset():
 
 @pytest.mark.slow
 def test_snow_fused_masked_matches_subset():
-    from rrmpg_tpu.ops import run_cemaneigehystgr4jice
-    from rrmpg_tpu.ops.pallas_snow import snowgr4j_ensemble_mse_pallas
+    from rrmpg_jax.ops import run_cemaneigehystgr4jice
+    from rrmpg_jax.ops.pallas_snow import snowgr4j_ensemble_mse_pallas
 
     rng = np.random.default_rng(8)
     T, L, N = 200, 3, 4
@@ -321,7 +321,7 @@ def test_snow_fused_masked_matches_subset():
               'DDF': jnp.asarray(rng.uniform(0, 30, N))}
     losses = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-        frac_ice=jnp.asarray(fi), hyst=True, ice=True, t_tile=128,
+        frac_ice=jnp.asarray(fi), hyst=True, ice=True, 
         num_uh1=3, num_uh2=7, interpret=True, masked=True)
     valid = np.isfinite(qobs)
     i = 0
@@ -334,8 +334,8 @@ def test_snow_fused_masked_matches_subset():
 
 @pytest.mark.slow
 def test_snow_regional_masked_ragged_records():
-    from rrmpg_tpu.ops import run_cemaneigehystgr4j
-    from rrmpg_tpu.parallel.regional import regional_snow_objective
+    from rrmpg_jax.ops import run_cemaneigehystgr4j
+    from rrmpg_jax.parallel.regional import regional_snow_objective
 
     rng = np.random.default_rng(9)
     C, T, L, N = 2, 150, 2, 4
@@ -356,7 +356,7 @@ def test_snow_regional_masked_ragged_records():
               'x4': jnp.asarray(rng.uniform(1.1, 2.9, N))}
     losses = np.asarray(regional_snow_objective(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-        hyst=True, interpret=True, t_tile=128, num_uh1=3, num_uh2=7))
+        hyst=True, interpret=True, num_uh1=3, num_uh2=7))
     assert np.isfinite(losses).all()
     for c in range(C):
         valid = np.isfinite(qobs[c])
@@ -373,8 +373,8 @@ def test_snow_regional_masked_ragged_records():
 # ---------------------------------------------------------------------------
 
 def test_fit_and_monte_carlo_with_gaps():
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.tools import monte_carlo
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.tools import monte_carlo
 
     rng = np.random.default_rng(10)
     T = 365
@@ -403,8 +403,8 @@ def test_trajectory_free_mc_with_gaps():
     """monte_carlo(return_qsim=False, engine='pallas') on gapped obs:
     the fused sufficient-statistics path selects the masked kernel and
     matches the (NaN-aware) trajectory metrics."""
-    from rrmpg_tpu.models import GR4J
-    from rrmpg_tpu.tools import monte_carlo
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.tools import monte_carlo
 
     rng = np.random.default_rng(21)
     T = 250
@@ -432,7 +432,7 @@ def test_trajectory_free_mc_with_gaps():
 def test_warm_fused_fit_with_gaps():
     """fit(initial_state=, engine='pallas') with gapped observations:
     the warm masked kernel agrees with the warm XLA objective."""
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     rng = np.random.default_rng(22)
     T = 300
@@ -461,9 +461,9 @@ def test_load_basins_to_regional_objective_end_to_end(tmp_path):
     """The full multi-basin chain: CAMELS-format files with -999 gaps
     -> load_basins(join='outer') -> masked regional GR4J sweep with
     finite, hand-checkable per-catchment losses."""
-    from rrmpg_tpu.data import CAMELSLoader
-    from rrmpg_tpu.ops.gr4j import run_gr4j
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.data import CAMELSLoader
+    from rrmpg_jax.ops.gr4j import run_gr4j
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     _write_camels_basin(tmp_path, "02002000", T=800)
     _write_camels_basin(tmp_path, "02002001", T=800,

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools.mcmc import demc_sample
+from rrmpg_jax.tools.mcmc import demc_sample
 
 
 class TestGaussianTarget:
@@ -98,7 +98,7 @@ class TestGaussianTarget:
         assert res.samples.shape[1] == 6
 
     def test_mesh_sharded_identical(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         def lp(x):
             return -0.5 * jnp.sum(x ** 2)
@@ -111,7 +111,7 @@ class TestGaussianTarget:
         assert res.acceptance_rate == pytest.approx(ref.acceptance_rate)
 
     def test_mesh_batched_rejected(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         with pytest.raises(ValueError, match="vmappable"):
             demc_sample(lambda X: -jnp.sum(X ** 2, axis=1), [(0, 1)] * 2,
@@ -133,8 +133,8 @@ class TestHydrologyPosterior:
         """Gaussian likelihood around a synthetic truth: the pooled
         posterior mean must sit near the generating parameters and the
         truth must lie inside the central 95% credible box."""
-        from rrmpg_tpu.models import GR4J
-        from rrmpg_tpu.ops.gr4j import run_gr4j
+        from rrmpg_jax.models import GR4J
+        from rrmpg_jax.ops.gr4j import run_gr4j
 
         rng = np.random.default_rng(0)
         T = 365

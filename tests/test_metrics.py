@@ -4,7 +4,7 @@ batched-jittable equivalence checks."""
 import numpy as np
 import pytest
 
-from rrmpg_tpu.utils import (
+from rrmpg_jax.utils import (
     calc_alpha_nse,
     calc_beta_nse,
     calc_kge,

@@ -12,7 +12,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from rrmpg_tpu.models import (
+from rrmpg_jax.models import (
     Cemaneige,
     CemaneigeGR4J,
     CemaneigeHystGR4J,

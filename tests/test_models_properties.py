@@ -2,8 +2,8 @@
 
 * zero rain => zero discharge, negative rain => ValueError (reference
   parity, ``test/test_models.py:90-99``),
-* vmap-batched ensembles == per-set loops (the serial loop the TPU build
-  replaces),
+* vmap-batched ensembles == per-set loops (the serial loop the batched
+  engine replaces),
 * ABC associative-scan (parallel prefix) == sequential scan,
 * batched output shape conventions.
 """
@@ -11,8 +11,8 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import ABCModel, GR4J, HBVEdu
-from rrmpg_tpu.ops import (
+from rrmpg_jax.models import ABCModel, GR4J, HBVEdu
+from rrmpg_jax.ops import (
     run_abcmodel,
     run_abcmodel_matscan,
     run_abcmodel_pscan,
@@ -104,7 +104,7 @@ def test_abc_pscan_equals_scan():
 
 @pytest.mark.parametrize("T", [1, 5, 127, 128, 129, 5000, 100001])
 def test_abc_matscan_equals_scan(T):
-    # Toeplitz-matmul path (the MXU kernel) vs the sequential oracle,
+    # Toeplitz-matmul path vs the sequential oracle,
     # incl. chunk-boundary sizes and multi-level recursion depths.
     rng = np.random.default_rng(T)
     prec = rng.uniform(0, 20, T)

@@ -10,8 +10,8 @@ default trajectory evaluation.
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import GR4J, CemaneigeHystGR4JIce, HBVEdu
-from rrmpg_tpu.tools import monte_carlo
+from rrmpg_jax.models import GR4J, CemaneigeHystGR4JIce, HBVEdu
+from rrmpg_jax.tools import monte_carlo
 
 from lane import tol
 

@@ -12,7 +12,7 @@ import pytest
 
 from lane import tol
 
-from rrmpg_tpu.tools.moo import _dominance, _nondominated_ranks, nsga2
+from rrmpg_jax.tools.moo import _dominance, _nondominated_ranks, nsga2
 
 
 def zdt1(x):
@@ -115,8 +115,8 @@ class TestZDT:
 class TestFitQSCAPareto:
     @pytest.mark.slow
     def test_front_and_validation(self):
-        from rrmpg_tpu.models import CemaneigeHystGR4J
-        from rrmpg_tpu.tools.moo import ParetoResult
+        from rrmpg_jax.models import CemaneigeHystGR4J
+        from rrmpg_jax.tools.moo import ParetoResult
 
         rng = np.random.default_rng(0)
         T = 150
@@ -155,9 +155,9 @@ class TestFitQSCAPareto:
         on identical parameter batches (kge metric, interpret mode)."""
         import jax.numpy as jnp
 
-        from rrmpg_tpu.models import CemaneigeHystGR4J
-        from rrmpg_tpu.ops.compositions import run_cemaneigehystgr4j
-        from rrmpg_tpu.utils.metrics import kge as jkge
+        from rrmpg_jax.models import CemaneigeHystGR4J
+        from rrmpg_jax.ops.compositions import run_cemaneigehystgr4j
+        from rrmpg_jax.utils.metrics import kge as jkge
 
         rng = np.random.default_rng(1)
         T = 128
@@ -213,8 +213,8 @@ class TestHydrologyBiObjective:
         raw discharge ~ high flows, MSE on log discharge ~ low flows)
         and check the front exposes a real tradeoff containing
         near-specialist solutions at both ends."""
-        from rrmpg_tpu.ops.gr4j import run_gr4j
-        from rrmpg_tpu.utils.metrics import mse
+        from rrmpg_jax.ops.gr4j import run_gr4j
+        from rrmpg_jax.utils.metrics import mse
 
         rng = np.random.default_rng(0)
         T = 400
@@ -253,7 +253,7 @@ class TestHydrologyBiObjective:
 
 class TestHypervolume:
     def test_exact_areas(self):
-        from rrmpg_tpu.tools.moo import hypervolume_2d
+        from rrmpg_jax.tools.moo import hypervolume_2d
 
         assert hypervolume_2d([[0.0, 0.0]], [1.0, 1.0]) == 1.0
         assert hypervolume_2d([[0.0, 0.5], [0.5, 0.0]],
@@ -267,7 +267,7 @@ class TestHypervolume:
             hypervolume_2d([[0.0, 0.0, 0.0]], [1.0, 1.0])
 
     def test_improves_over_generations(self):
-        from rrmpg_tpu.tools.moo import hypervolume_2d
+        from rrmpg_jax.tools.moo import hypervolume_2d
 
         r_short = nsga2(zdt1, [(0.0, 1.0)] * 6, pop_size=48,
                         n_generations=5, seed=0)

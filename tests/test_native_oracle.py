@@ -8,8 +8,8 @@ catches shared-blind-spot bugs that golden CSVs (fixed parameters) miss.
 import numpy as np
 import pytest
 
-from rrmpg_tpu import native
-from rrmpg_tpu.ops import (
+from rrmpg_jax import native
+from rrmpg_jax.ops import (
     run_abcmodel,
     run_cemaneige,
     run_cemaneigehyst,

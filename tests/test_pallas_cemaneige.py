@@ -5,7 +5,7 @@ import pytest
 
 from lane import tol
 
-from rrmpg_tpu.models import Cemaneige
+from rrmpg_jax.models import Cemaneige
 
 ALTITUDES = [550., 620., 700., 785., 920.]
 STATION = 495.0
@@ -51,7 +51,7 @@ def test_cemaneige_fit_pallas_engine_smoke():
 def test_composition_class_pallas_interpret():
     # The interpret= plumbing through the composition class API (the CPU
     # CI gap flagged in round 1): CemaneigeGR4J simulate via both engines.
-    from rrmpg_tpu.models import CemaneigeGR4J
+    from rrmpg_jax.models import CemaneigeGR4J
 
     model = CemaneigeGR4J()
     params = model.get_random_params(num=2)
@@ -73,7 +73,7 @@ def test_composition_class_pallas_interpret():
 def test_all_composition_classes_pallas_interpret():
     # Class-level engine parity for the remaining composition classes
     # (CemaneigeGR4J is covered above).
-    from rrmpg_tpu.models import (CemaneigeGR4JIce, CemaneigeHystGR4J,
+    from rrmpg_jax.models import (CemaneigeGR4JIce, CemaneigeHystGR4J,
                                   CemaneigeHystGR4JIce)
 
     rng = np.random.default_rng(23)

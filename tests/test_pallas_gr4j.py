@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops import run_gr4j
-from rrmpg_tpu.ops.pallas_gr4j import (
+from rrmpg_jax.ops import fused, run_gr4j
+from rrmpg_jax.ops.pallas_gr4j import (
     BLOCK,
     gr4j_ensemble_mse_pallas,
     gr4j_simulate_pallas,
@@ -38,7 +38,7 @@ def _xla_qsim(prec, etp, params):
 @pytest.mark.slow
 def test_traj_kernel_matches_xla():
     prec, etp, _, params = _inputs(200, BLOCK)
-    qsim_p = gr4j_simulate_pallas(prec, etp, 0.4, 0.3, params, t_tile=64,
+    qsim_p = gr4j_simulate_pallas(prec, etp, 0.4, 0.3, params, 
                                   interpret=True)
     qsim_x = _xla_qsim(prec, etp, params)
     assert np.allclose(np.asarray(qsim_p), np.asarray(qsim_x),
@@ -47,9 +47,9 @@ def test_traj_kernel_matches_xla():
 
 @pytest.mark.slow
 def test_traj_kernel_t_padding():
-    # T=150 is not a multiple of t_tile=64 -> exercises the padded tail.
+    # T=150 is no power of two: the time loop has no tile to pad to.
     prec, etp, _, params = _inputs(150, BLOCK, seed=3)
-    qsim_p = gr4j_simulate_pallas(prec, etp, 0.1, 0.6, params, t_tile=64,
+    qsim_p = gr4j_simulate_pallas(prec, etp, 0.1, 0.6, params, 
                                   interpret=True)
     qsim_x = jax.vmap(
         lambda p: run_gr4j(prec, etp, 0.1, 0.6, p)[0])(params)
@@ -62,17 +62,17 @@ def test_traj_kernel_t_padding():
 def test_mse_kernel_matches_xla():
     prec, etp, qobs, params = _inputs(200, BLOCK, seed=1)
     mse_p = gr4j_ensemble_mse_pallas(prec, etp, qobs, 0.4, 0.3, params,
-                                     t_tile=64, interpret=True)
+                                     interpret=True)
     qsim_x = _xla_qsim(prec, etp, params)
     mse_x = jnp.mean((qsim_x - qobs[None, :]) ** 2, axis=1)
     assert np.allclose(np.asarray(mse_p), np.asarray(mse_x))
 
 
 def test_mse_kernel_member_padding():
-    # N not a multiple of the (8, 128) block -> member padding path.
+    # N not a multiple of the member block -> member padding path.
     prec, etp, qobs, params = _inputs(130, 100, seed=2)
     mse_p = gr4j_ensemble_mse_pallas(prec, etp, qobs, 0.2, 0.2, params,
-                                     t_tile=64, interpret=True)
+                                     interpret=True)
     assert mse_p.shape == (100,)
     qsim_x = jax.vmap(
         lambda p: run_gr4j(prec, etp, 0.2, 0.2, p)[0])(params)
@@ -85,7 +85,7 @@ def test_short_uh_registers():
     # 3/7-tap registers are exact for plain-GR4J bounds (x4 <= 2.9).
     prec, etp, qobs, params = _inputs(150, BLOCK, seed=4, x4_max=2.9)
     mse_p = gr4j_ensemble_mse_pallas(prec, etp, qobs, 0.4, 0.3, params,
-                                     t_tile=64, num_uh1=3, num_uh2=7,
+                                     num_uh1=3, num_uh2=7,
                                      interpret=True)
     qsim_x = _xla_qsim(prec, etp, params)
     mse_x = jnp.mean((qsim_x - qobs[None, :]) ** 2, axis=1)
@@ -93,7 +93,7 @@ def test_short_uh_registers():
 
 
 def test_gr4j_class_pallas_engine():
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     model = GR4J()
     params = model.get_random_params(num=10)
@@ -107,7 +107,7 @@ def test_gr4j_class_pallas_engine():
 
 
 def test_gr4j_class_pallas_fit_interpret():
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     rng = np.random.default_rng(9)
     prec = rng.uniform(0, 12, 150)
@@ -120,7 +120,7 @@ def test_gr4j_class_pallas_fit_interpret():
 
 
 def test_pallas_engine_rejects_storage():
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     with pytest.raises(ValueError):
         GR4J().simulate(np.ones(10), np.ones(10), return_storage=True,
@@ -133,12 +133,12 @@ def test_gr4j_stats_variant_matches_trajectory():
     objective."""
     import jax.numpy as jnp
 
-    from rrmpg_tpu.ops.pallas_gr4j import (
+    from rrmpg_jax.ops.pallas_gr4j import (
         gr4j_ensemble_mse_pallas,
         gr4j_simulate_pallas,
     )
-    from rrmpg_tpu.ops.pallas_snow import losses_from_stats
-    from rrmpg_tpu.utils.metrics import kge as jkge
+    from rrmpg_jax.ops.pallas_snow import losses_from_stats
+    from rrmpg_jax.utils.metrics import kge as jkge
 
     rng = np.random.default_rng(0)
     T, N = 200, 16
@@ -177,7 +177,7 @@ def test_gr4j_stats_variant_matches_trajectory():
 def test_gr4j_class_pallas_fit_kge(gr4j_synthetic=None):
     """fit(engine='pallas', loss_metric='kge') runs through the class
     API in interpret mode and reaches a low 1-KGE."""
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     rng = np.random.default_rng(3)
     T = 150
@@ -189,3 +189,31 @@ def test_gr4j_class_pallas_fit_kge(gr4j_synthetic=None):
                      engine='pallas', interpret=True, maxiter=15)
     assert np.isfinite(res.fun)
     assert res.fun < 0.5  # 1 - KGE well below the random baseline
+
+
+@pytest.mark.parametrize("n,block,want", [
+    (1, None, fused.MIN_BLOCK), (100, None, min(fused.BLOCK, 128)),
+    (131072, None, fused.BLOCK), (300, 64, 64), (5, 256, 256)])
+def test_block_size_choice(n, block, want):
+    assert fused.block_size(n, block) == want
+
+
+@pytest.mark.parametrize("block", [0, -4, 3, 96])
+def test_block_size_rejects_non_power_of_two(block):
+    with pytest.raises(ValueError, match="power of two"):
+        fused.block_size(100, block)
+
+
+def test_member_padding_is_invisible():
+    """100 members in blocks of 32 (28 padded lanes) or one block of 128:
+    identical losses, statistics and trajectories."""
+    prec, etp, qobs, params = _inputs(60, 100, seed=8)
+    kw = dict(interpret=True, num_uh1=10, num_uh2=21)
+    for stats in (False, True):
+        a = gr4j_ensemble_mse_pallas(prec, etp, qobs, 0.3, 0.3, params,
+                                     stats=stats, block=32, **kw)
+        b = gr4j_ensemble_mse_pallas(prec, etp, qobs, 0.3, 0.3, params,
+                                     stats=stats, block=128, **kw)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    q = gr4j_simulate_pallas(prec, etp, 0.3, 0.3, params, block=32, **kw)
+    assert q.shape == (100, 60)

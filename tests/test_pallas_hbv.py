@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops import run_hbvedu
-from rrmpg_tpu.ops.pallas_hbv import hbv_ensemble_mse_pallas
+from rrmpg_jax.ops import run_hbvedu
+from rrmpg_jax.ops.pallas_hbv import hbv_ensemble_mse_pallas
 
 
 def _inputs(T=300, N=1024, seed=3):
@@ -32,7 +32,7 @@ def test_hbv_mse_kernel_matches_xla():
     temp, prec, month, pe_m, t_m, qobs, params = _inputs()
     mse_p = hbv_ensemble_mse_pallas(temp, prec, month, pe_m, t_m, qobs,
                                     0.0, 100.0, 3.0, 10.0, params,
-                                    t_tile=128, interpret=True)
+                                    interpret=True)
     q_x = jax.vmap(lambda p: run_hbvedu(temp, prec, month, pe_m, t_m, 0.0,
                                         100.0, 3.0, 10.0, p)[0])(params)
     mse_x = jnp.mean((q_x - qobs[None, :]) ** 2, axis=1)
@@ -43,7 +43,7 @@ def test_hbv_mse_kernel_member_padding():
     temp, prec, month, pe_m, t_m, qobs, params = _inputs(T=130, N=70)
     mse_p = hbv_ensemble_mse_pallas(temp, prec, month, pe_m, t_m, qobs,
                                     0.0, 100.0, 3.0, 10.0, params,
-                                    t_tile=64, interpret=True)
+                                    interpret=True)
     assert mse_p.shape == (70,)
     q_x = jax.vmap(lambda p: run_hbvedu(temp, prec, month, pe_m, t_m, 0.0,
                                         100.0, 3.0, 10.0, p)[0])(params)
@@ -54,8 +54,8 @@ def test_hbv_mse_kernel_member_padding():
 @pytest.mark.slow
 def test_hbv_simulate_pallas_matches_xla():
     import jax.numpy as jnp
-    from rrmpg_tpu.ops.hbvedu import run_hbvedu
-    from rrmpg_tpu.ops.pallas_hbv import hbv_simulate_pallas
+    from rrmpg_jax.ops.hbvedu import run_hbvedu
+    from rrmpg_jax.ops.pallas_hbv import hbv_simulate_pallas
 
     rng = np.random.default_rng(21)
     T, N = 400, 5
@@ -78,7 +78,7 @@ def test_hbv_simulate_pallas_matches_xla():
         'L': jnp.asarray(rng.uniform(2, 5, N)),
     }
     q_p = hbv_simulate_pallas(temp, prec, month, pe_m, t_m, 5.0, 120.0,
-                              1.0, 1.0, params, t_tile=128,
+                              1.0, 1.0, params, 
                               interpret=True)
     for i in range(N):
         p_i = {k: v[i] for k, v in params.items()}
@@ -89,7 +89,7 @@ def test_hbv_simulate_pallas_matches_xla():
 
 
 def test_hbv_class_pallas_engine():
-    from rrmpg_tpu.models import HBVEdu
+    from rrmpg_jax.models import HBVEdu
 
     model = HBVEdu()
     rng = np.random.default_rng(3)
@@ -110,7 +110,7 @@ def test_hbv_stats_variant_matches_trajectory():
     """stats=True equals the statistics of the fused trajectory."""
     import jax.numpy as jnp
 
-    from rrmpg_tpu.ops.pallas_hbv import (
+    from rrmpg_jax.ops.pallas_hbv import (
         hbv_ensemble_mse_pallas,
         hbv_simulate_pallas,
     )
@@ -123,7 +123,7 @@ def test_hbv_stats_variant_matches_trajectory():
     pe_m = jnp.asarray(rng.uniform(1, 4, 12))
     t_m = jnp.asarray(rng.uniform(-5, 15, 12))
     qobs = jnp.asarray(rng.uniform(0, 5, T))
-    from rrmpg_tpu.models import HBVEdu
+    from rrmpg_jax.models import HBVEdu
     params = {k: jnp.asarray(rng.uniform(lo, hi, N)) for k, (lo, hi)
               in HBVEdu._default_bounds.items()}
 
@@ -146,14 +146,14 @@ def test_hbv_stats_variant_matches_trajectory():
 def test_hbv_simulate_pallas_state_roundtrip():
     """Fused forecast mode: split run == unbroken run, exactly as the
     XLA warm kernel; cold final state matches run_hbvedu(return_final)."""
-    from rrmpg_tpu.ops.hbvedu import run_hbvedu
-    from rrmpg_tpu.ops.pallas_hbv import hbv_simulate_pallas_state
+    from rrmpg_jax.ops.hbvedu import run_hbvedu
+    from rrmpg_jax.ops.pallas_hbv import hbv_simulate_pallas_state
 
     temp, prec, month, pe_m, t_m, qobs, params = _inputs(T=300, N=6,
                                                          seed=9)
     inits = (5.0, 120.0, 1.0, 1.0)
     q_full, final_full = hbv_simulate_pallas_state(
-        temp, prec, month, pe_m, t_m, *inits, params, t_tile=128,
+        temp, prec, month, pe_m, t_m, *inits, params, 
         interpret=True)
     # Cold trajectory + final state vs the XLA reference kernel.
     for i in range(3):
@@ -172,10 +172,10 @@ def test_hbv_simulate_pallas_state_roundtrip():
     half = 150
     q_a, state_a = hbv_simulate_pallas_state(
         temp[:half], prec[:half], month[:half], pe_m, t_m, *inits,
-        params, t_tile=64, interpret=True)
+        params, interpret=True)
     q_b, state_b = hbv_simulate_pallas_state(
         temp[half:], prec[half:], month[half:], pe_m, t_m, 0, 0, 0, 0,
-        params, t_tile=64, interpret=True, state=state_a)
+        params, interpret=True, state=state_a)
     q_chained = np.concatenate([np.asarray(q_a), np.asarray(q_b)],
                                axis=1)
     assert np.allclose(q_chained, np.asarray(q_full), rtol=1e-6,
@@ -185,7 +185,7 @@ def test_hbv_simulate_pallas_state_roundtrip():
 
 
 def test_hbv_class_pallas_forecast_mode():
-    from rrmpg_tpu.models import HBVEdu
+    from rrmpg_jax.models import HBVEdu
 
     model = HBVEdu()
     rng = np.random.default_rng(13)
@@ -213,7 +213,7 @@ def test_hbv_class_pallas_forecast_mode():
 def test_hbv_fit_initial_state_pallas_matches_xla():
     """fit(initial_state=, engine='pallas') agrees with the XLA warm fit
     and recovers the truth on a continuation segment."""
-    from rrmpg_tpu.models import HBVEdu
+    from rrmpg_jax.models import HBVEdu
 
     rng = np.random.default_rng(17)
     T = 400

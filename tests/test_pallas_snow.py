@@ -14,18 +14,18 @@ from lane import tol
 
 pytestmark = pytest.mark.slow
 
-from rrmpg_tpu.ops import (
+from rrmpg_jax.ops import (
     run_cemaneigegr4j,
     run_cemaneigegr4jice,
     run_cemaneigehystgr4j,
     run_cemaneigehystgr4jice,
 )
-from rrmpg_tpu.ops.pallas_snow import (
+from rrmpg_jax.ops.pallas_snow import (
     losses_from_stats,
     snowgr4j_ensemble_mse_pallas,
 )
-from rrmpg_tpu.utils.metrics import kge as jkge
-from rrmpg_tpu.utils.metrics import nse as jnse
+from rrmpg_jax.utils.metrics import kge as jkge
+from rrmpg_jax.utils.metrics import nse as jnse
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_plain_variant(data):
     prec, temp, frac, etp, qobs, _, params = data
     m_p = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 2.0, -1.0, 0.4, 0.3, params,
-        t_tile=64, interpret=True)
+        interpret=True)
     q_x = jax.vmap(lambda p: run_cemaneigegr4j(
         prec, temp, etp, frac, 2.0, -1.0, 0.4, 0.3, p)[0])(params)
     assert np.allclose(np.asarray(m_p), np.asarray(_mse(q_x, qobs)),
@@ -66,7 +66,7 @@ def test_hyst_variant(data):
     prec, temp, frac, etp, qobs, _, params = data
     m_p = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 2.0, -1.0, 0.4, 0.3, params,
-        hyst=True, t_tile=64, interpret=True)
+        hyst=True, interpret=True)
     q_x = jax.vmap(lambda p: run_cemaneigehystgr4j(
         prec, temp, etp, frac, 2.0, -1.0, 0.0, 0.4, 0.3, p)[0])(params)
     assert np.allclose(np.asarray(m_p), np.asarray(_mse(q_x, qobs)),
@@ -77,7 +77,7 @@ def test_ice_variant(data):
     prec, temp, frac, etp, qobs, frac_ice, params = data
     m_p = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 2.0, -1.0, 0.4, 0.3, params,
-        frac_ice=frac_ice, ice=True, t_tile=64, interpret=True)
+        frac_ice=frac_ice, ice=True, interpret=True)
     q_x = jax.vmap(lambda p: run_cemaneigegr4jice(
         prec, temp, etp, frac_ice, frac, 2.0, -1.0, 0.4, 0.3,
         p)[0])(params)
@@ -89,7 +89,7 @@ def test_hyst_ice_variant_with_stats(data):
     prec, temp, frac, etp, qobs, frac_ice, params = data
     stats = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 2.0, -1.0, 0.4, 0.3, params,
-        frac_ice=frac_ice, hyst=True, ice=True, stats=True, t_tile=64,
+        frac_ice=frac_ice, hyst=True, ice=True, stats=True, 
         interpret=True)
     losses = losses_from_stats(stats, qobs)
     q_x = jax.vmap(lambda p: run_cemaneigehystgr4jice(
@@ -107,12 +107,12 @@ def test_hyst_ice_variant_with_stats(data):
 
 
 def test_traj_variants_match_xla(data):
-    from rrmpg_tpu.ops.pallas_snow import snowgr4j_simulate_pallas
+    from rrmpg_jax.ops.pallas_snow import snowgr4j_simulate_pallas
 
     prec, temp, frac, etp, qobs, frac_ice, params = data
     q_p = snowgr4j_simulate_pallas(prec, temp, etp, frac, 2.0, -1.0, 0.4,
                                    0.3, params, frac_ice=frac_ice,
-                                   hyst=True, ice=True, t_tile=64,
+                                   hyst=True, ice=True, 
                                    interpret=True)
     q_x = jax.vmap(lambda p: run_cemaneigehystgr4jice(
         prec, temp, etp, frac_ice, frac, 2.0, -1.0, 0.0, 0.4, 0.3,

@@ -6,9 +6,9 @@ import pytest
 
 from lane import tol
 
-from rrmpg_tpu.ops import (run_cemaneigegr4j, run_cemaneigehystgr4j,
+from rrmpg_jax.ops import (run_cemaneigegr4j, run_cemaneigehystgr4j,
                            run_cemaneigehystgr4jice)
-from rrmpg_tpu.ops.pallas_snow import snowgr4j_regional_mse_pallas
+from rrmpg_jax.ops.pallas_snow import snowgr4j_regional_mse_pallas
 
 pytestmark = pytest.mark.slow
 
@@ -40,7 +40,7 @@ def test_regional_snow_plain_matches_xla():
     C, N = prec.shape[0], params['CTG'].shape[0]
     losses = snowgr4j_regional_mse_pallas(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-        t_tile=128, num_uh1=3, num_uh2=7, interpret=True)
+        num_uh1=3, num_uh2=7, interpret=True)
     assert losses.shape == (C, N)
     for c in range(C):
         for i in range(N):
@@ -56,7 +56,7 @@ def test_regional_snow_hyst_ice_per_catchment_frac_ice():
     C, N = prec.shape[0], params['CTG'].shape[0]
     losses = snowgr4j_regional_mse_pallas(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-        frac_ice=fi, hyst=True, ice=True, t_tile=128, num_uh1=3,
+        frac_ice=fi, hyst=True, ice=True, num_uh1=3,
         num_uh2=7, interpret=True)
     for c in range(C):
         for i in range(N):
@@ -69,13 +69,13 @@ def test_regional_snow_hyst_ice_per_catchment_frac_ice():
 
 
 def test_regional_snow_objective_helper():
-    from rrmpg_tpu.parallel.regional import regional_snow_objective
+    from rrmpg_jax.parallel.regional import regional_snow_objective
 
     prec, temp, frac, etp, qobs, fi, params = _inputs(seed=9)
     C, N = prec.shape[0], params['CTG'].shape[0]
     losses = regional_snow_objective(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-        frac_ice=fi, hyst=True, ice=True, interpret=True, t_tile=128,
+        frac_ice=fi, hyst=True, ice=True, interpret=True, 
         num_uh1=3, num_uh2=7)
     assert losses.shape == (C, N)
     # spot-check one pair against the XLA composition
@@ -88,20 +88,20 @@ def test_regional_snow_objective_helper():
 
 
 def test_regional_snow_objective_fused_under_mesh():
-    # Production pod configuration for the snow family: the fused Pallas
+    # Multi-card configuration for the snow family: the fused Pallas
     # regional kernel under shard_map on the 2-D (ensemble, catchment)
     # mesh.  Sharding must be a pure layout change (bit-identical to the
     # single-device fused run) and agree with the sharded XLA engine.
     import jax
-    from rrmpg_tpu.parallel.mesh import ensemble_catchment_mesh
-    from rrmpg_tpu.parallel.regional import regional_snow_objective
-    from rrmpg_tpu.parallel.regional import regional_run
+    from rrmpg_jax.parallel.mesh import ensemble_catchment_mesh
+    from rrmpg_jax.parallel.regional import regional_snow_objective
+    from rrmpg_jax.parallel.regional import regional_run
 
     mesh = ensemble_catchment_mesh(ensemble=4, catchment=2)
     prec, temp, frac, etp, qobs, fi, params = _inputs(C=2, T=96, L=2, N=8,
                                                       seed=11)
     kw = dict(frac_ice=fi, hyst=True, ice=True, interpret=True,
-              t_tile=96, num_uh1=3, num_uh2=7)
+              num_uh1=3, num_uh2=7)
     l_mesh = regional_snow_objective(prec, temp, etp, frac, qobs,
                                      0.0, 0.0, 0.2, 0.2, params,
                                      mesh=mesh, **kw)
@@ -149,7 +149,7 @@ def test_regional_snow_fuzz_shapes():
         }
         losses = snowgr4j_regional_mse_pallas(
             prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
-            hyst=True, t_tile=128, num_uh1=3, num_uh2=7, interpret=True)
+            hyst=True, num_uh1=3, num_uh2=7, interpret=True)
         c = int(rng.integers(0, C))
         i = int(rng.integers(0, N))
         p = {k: v[i] for k, v in params.items()}
@@ -163,8 +163,8 @@ def test_regional_snow_fuzz_shapes():
 def test_regional_snow_objective_loss_metric_kge():
     # Regional KGE sweep through the fused sufficient-statistics path
     # vs the per-catchment XLA metric, on a gapped gauge.
-    from rrmpg_tpu.parallel.regional import regional_snow_objective
-    from rrmpg_tpu.utils.metrics import kge
+    from rrmpg_jax.parallel.regional import regional_snow_objective
+    from rrmpg_jax.utils.metrics import kge
 
     prec, temp, frac, etp, qobs, fi, params = _inputs(C=2, T=120, L=2,
                                                       N=5, seed=13)
@@ -174,7 +174,7 @@ def test_regional_snow_objective_loss_metric_kge():
     losses = np.asarray(regional_snow_objective(
         prec, temp, etp, frac, qobs, 0.0, 0.0, 0.2, 0.2, params,
         frac_ice=fi, hyst=True, ice=True, interpret=True,
-        loss_metric="kge", t_tile=120, num_uh1=3, num_uh2=7))
+        loss_metric="kge", num_uh1=3, num_uh2=7))
     assert losses.shape == (2, 5)
     assert np.isfinite(losses).all()
     for c in range(2):

@@ -1,17 +1,17 @@
 """Sharded-ensemble tests on a virtual 8-device CPU mesh.
 
 Validates that GSPMD-sharded ensemble evaluation is numerically identical
-to the unsharded vmap path -- the multi-chip contract the TPU deployment
-relies on.
+to the unsharded vmap path -- the multi-device contract a multi-card
+deployment relies on.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import GR4J
-from rrmpg_tpu.ops import run_gr4j
-from rrmpg_tpu.parallel import (
+from rrmpg_jax.models import GR4J
+from rrmpg_jax.ops import run_gr4j
+from rrmpg_jax.parallel import (
     default_mesh,
     ensemble_catchment_mesh,
     ensemble_objective,
@@ -109,7 +109,7 @@ def test_de_mesh_matches_unsharded(mesh):
     # Population size 16*4=64 is a multiple of 8 devices, so the sharded
     # run sees the identical population and must evolve identically.
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     target = jnp.asarray([0.5, -1.0, 2.0, 0.1])
     bounds = [(-2, 2), (-3, 3), (0, 5), (-1, 1)]
@@ -128,7 +128,7 @@ def test_de_mesh_matches_unsharded(mesh):
 
 def test_de_mesh_batched_shard_map(mesh):
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     target = jnp.asarray([0.5, -1.0, 2.0, 0.1])
     bounds = [(-2, 2), (-3, 3), (0, 5), (-1, 1)]
@@ -173,7 +173,7 @@ def test_gr4j_fit_pallas_engine_with_mesh(mesh):
 def test_random_search_with_mesh(mesh):
     import jax
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import random_search
+    from rrmpg_jax.tools.calibration import random_search
 
     target = jnp.asarray([0.4, -0.6])
 

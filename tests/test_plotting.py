@@ -7,7 +7,7 @@ matplotlib.use("Agg")
 import numpy as np
 import pytest
 
-from rrmpg_tpu.utils.plot_utils import plot_qsim_range
+from rrmpg_jax.utils.plot_utils import plot_qsim_range
 
 
 def test_plot_qsim_range_basic():
@@ -35,8 +35,8 @@ def test_plot_qsim_range_errors():
 
 
 def test_plot_sensitivity_sobol_and_morris():
-    from rrmpg_tpu.tools.sensitivity import MorrisResult, SobolResult
-    from rrmpg_tpu.utils.plot_utils import plot_sensitivity
+    from rrmpg_jax.tools.sensitivity import MorrisResult, SobolResult
+    from rrmpg_jax.utils.plot_utils import plot_sensitivity
 
     sob = SobolResult(s1=np.array([0.3, 0.5]), st=np.array([0.4, 0.6]),
                       s1_conf=np.array([0.02, 0.03]),
@@ -58,8 +58,8 @@ def test_plot_sensitivity_sobol_and_morris():
 
 
 def test_plot_pareto_front():
-    from rrmpg_tpu.tools.moo import ParetoResult
-    from rrmpg_tpu.utils.plot_utils import plot_pareto_front
+    from rrmpg_jax.tools.moo import ParetoResult
+    from rrmpg_jax.utils.plot_utils import plot_pareto_front
 
     f1 = np.linspace(0, 1, 5)
     front = np.column_stack([f1, 1 - f1])
@@ -76,8 +76,8 @@ def test_plot_pareto_front():
 
 
 def test_plot_assimilation():
-    from rrmpg_tpu.tools.assimilation import EnKFDiagnostics
-    from rrmpg_tpu.utils.plot_utils import plot_assimilation
+    from rrmpg_jax.tools.assimilation import EnKFDiagnostics
+    from rrmpg_jax.utils.plot_utils import plot_assimilation
 
     diags = EnKFDiagnostics(innovation=np.random.normal(0, 1, (12, 1)),
                             prior_spread=np.random.uniform(0, 1, 12),

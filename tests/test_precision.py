@@ -1,7 +1,7 @@
 """Quantify float32 drift against the float64 reference trajectories.
 
 Validation runs in float64 (exact parity with the reference's golden
-data); TPU production runs prefer float32.  These tests bound the drift so
+data); large ensembles on the card run in float32.  These tests bound the drift so
 the f32 production mode is a known quantity: discharge stays within a
 small relative envelope of the f64 trajectory over multi-year series.
 """
@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops import run_cemaneigegr4j, run_gr4j
+from rrmpg_jax.ops import run_cemaneigegr4j, run_gr4j
 
 
 def _rel_err(a, b):

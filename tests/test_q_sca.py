@@ -11,14 +11,14 @@ import pytest
 
 from lane import tol
 
-from rrmpg_tpu.models import CemaneigeHystGR4J
-from rrmpg_tpu.ops import run_cemaneigehystgr4jice
-from rrmpg_tpu.ops.pallas_snow import (
+from rrmpg_jax.models import CemaneigeHystGR4J
+from rrmpg_jax.ops import run_cemaneigehystgr4jice
+from rrmpg_jax.ops.pallas_snow import (
     q_sca_loss_from_stats,
     snowgr4j_ensemble_mse_pallas,
 )
-from rrmpg_tpu.utils.metrics import kge as jkge
-from rrmpg_tpu.utils.metrics import mse as jmse
+from rrmpg_jax.utils.metrics import kge as jkge
+from rrmpg_jax.utils.metrics import mse as jmse
 
 
 def _synthetic(T=240, seed=11):
@@ -79,7 +79,7 @@ def test_q_sca_stats_match_trajectory_loss():
     stats = snowgr4j_ensemble_mse_pallas(
         prec, temp, etp, frac, qobs, 2.0, -1.0, 0.4, 0.3, params,
         frac_ice=frac_ice, ndsi=ndsi, hyst=True, ice=True, sca_stats=True,
-        t_tile=64, interpret=True)
+        interpret=True)
     assert stats.shape == (4 + 4 * L, N)
 
     outs = jax.vmap(lambda p: run_cemaneigehystgr4jice(
@@ -132,7 +132,7 @@ def test_fit_q_sca_pallas_interpret_smoke():
 
 @pytest.mark.slow
 def test_composition_fit_pallas_interpret_smoke():
-    from rrmpg_tpu.models import CemaneigeGR4JIce
+    from rrmpg_jax.models import CemaneigeGR4JIce
 
     rng = np.random.default_rng(8)
     T = 150

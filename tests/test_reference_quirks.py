@@ -18,8 +18,8 @@ def test_kge_fit_loss_is_one_minus_kge():
     # framework deliberately uses 1 - KGE everywhere; pin it.
     import jax.numpy as jnp
 
-    from rrmpg_tpu.models.cemaneigehystgr4j import _loss_fn
-    from rrmpg_tpu.utils.metrics import calc_kge
+    from rrmpg_jax.models.cemaneigehystgr4j import _loss_fn
+    from rrmpg_jax.utils.metrics import calc_kge
 
     rng = np.random.default_rng(0)
     obs = rng.uniform(1, 10, 500)
@@ -42,7 +42,7 @@ def test_hyst_sca_init_is_inert():
     # Reference parity: sca_init is assigned at t=0 but unconditionally
     # overwritten before any read (cemaneigehyst_model.py:100-143), so
     # two different values must produce bit-identical trajectories.
-    from rrmpg_tpu.ops.cemaneige import run_cemaneigehyst
+    from rrmpg_jax.ops.cemaneige import run_cemaneigehyst
 
     rng = np.random.default_rng(1)
     T, L = 200, 3

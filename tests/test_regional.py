@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops import run_gr4j
-from rrmpg_tpu.parallel import ensemble_catchment_mesh, regional_run
+from rrmpg_jax.ops import run_gr4j
+from rrmpg_jax.parallel import ensemble_catchment_mesh, regional_run
 
 from lane import tol
 
@@ -60,7 +60,7 @@ def test_regional_on_two_axis_mesh():
 
 def test_regional_gr4j_objective_engines_agree():
     import jax.numpy as jnp
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     rng = np.random.default_rng(13)
     C, T, N = 2, 200, 6
@@ -75,7 +75,7 @@ def test_regional_gr4j_objective_engines_agree():
                                     engine="xla")
     l_pal = regional_gr4j_objective(prec, etp, qobs, 0.3, 0.3, params,
                                     engine="pallas", interpret=True,
-                                    t_tile=128, num_uh1=3, num_uh2=7)
+                                    num_uh1=3, num_uh2=7)
     assert l_pal.shape == (C, N)
     assert np.allclose(np.asarray(l_pal), np.asarray(l_xla),
                        rtol=tol(1e-8, 5e-3), atol=tol(1e-10, 1e-4))
@@ -84,8 +84,8 @@ def test_regional_gr4j_objective_engines_agree():
 def test_regional_gr4j_objective_mesh_shard_map():
     import jax
     import jax.numpy as jnp
-    from rrmpg_tpu.parallel.mesh import ensemble_catchment_mesh
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.parallel.mesh import ensemble_catchment_mesh
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     mesh = ensemble_catchment_mesh(ensemble=4, catchment=2)
     rng = np.random.default_rng(14)
@@ -106,13 +106,13 @@ def test_regional_gr4j_objective_mesh_shard_map():
 
 
 def test_regional_gr4j_objective_fused_under_mesh():
-    # The production TPU configuration: the fused Pallas regional kernel
+    # The multi-card configuration: the fused Pallas regional kernel
     # under shard_map on the 2-D (ensemble, catchment) mesh.  Must agree
     # with (a) the single-device fused result and (b) the sharded XLA
     # result -- the kernel and the sharding proven *together*.
     import jax.numpy as jnp
-    from rrmpg_tpu.parallel.mesh import ensemble_catchment_mesh
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.parallel.mesh import ensemble_catchment_mesh
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     mesh = ensemble_catchment_mesh(ensemble=4, catchment=2)
     rng = np.random.default_rng(15)
@@ -124,7 +124,7 @@ def test_regional_gr4j_objective_fused_under_mesh():
               'x2': jnp.asarray(rng.uniform(-5, 3, N)),
               'x3': jnp.asarray(rng.uniform(20, 300, N)),
               'x4': jnp.asarray(rng.uniform(1.1, 2.9, N))}
-    kw = dict(engine="pallas", interpret=True, t_tile=128,
+    kw = dict(engine="pallas", interpret=True, 
               num_uh1=3, num_uh2=7)
     l_fused_mesh = regional_gr4j_objective(prec, etp, qobs, 0.3, 0.3,
                                            params, mesh=mesh, **kw)
@@ -143,9 +143,9 @@ def test_regional_gr4j_objective_loss_metrics():
     # nse/kge regional sweeps: the fused sufficient-statistics path must
     # match per-catchment XLA metrics, including on gapped records.
     import jax
-    from rrmpg_tpu.ops.gr4j import run_gr4j
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
-    from rrmpg_tpu.utils.metrics import kge, nse
+    from rrmpg_jax.ops.gr4j import run_gr4j
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.utils.metrics import kge, nse
 
     rng = np.random.default_rng(17)
     C, T, N = 3, 180, 6
@@ -160,7 +160,7 @@ def test_regional_gr4j_objective_loss_metrics():
     for metric, fn in (("kge", kge), ("nse", nse), ("rmse", None)):
         l_pal = np.asarray(regional_gr4j_objective(
             prec, etp, qobs, 0.3, 0.3, params, engine="pallas",
-            interpret=True, loss_metric=metric, t_tile=128, num_uh1=3,
+            interpret=True, loss_metric=metric, num_uh1=3,
             num_uh2=7))
         l_xla = np.asarray(regional_gr4j_objective(
             prec, etp, qobs, 0.3, 0.3, params, engine="xla",
@@ -179,8 +179,8 @@ def test_regional_gr4j_objective_loss_metrics():
 
 def test_regional_gr4j_objective_kge_under_mesh():
     import jax.numpy as jnp
-    from rrmpg_tpu.parallel.mesh import ensemble_catchment_mesh
-    from rrmpg_tpu.parallel.regional import regional_gr4j_objective
+    from rrmpg_jax.parallel.mesh import ensemble_catchment_mesh
+    from rrmpg_jax.parallel.regional import regional_gr4j_objective
 
     mesh = ensemble_catchment_mesh(ensemble=4, catchment=2)
     rng = np.random.default_rng(18)
@@ -193,7 +193,7 @@ def test_regional_gr4j_objective_kge_under_mesh():
               'x3': jnp.asarray(rng.uniform(20, 300, N)),
               'x4': jnp.asarray(rng.uniform(1.1, 2.9, N))}
     kw = dict(engine="pallas", interpret=True, loss_metric="kge",
-              t_tile=128, num_uh1=3, num_uh2=7)
+              num_uh1=3, num_uh2=7)
     l_mesh = regional_gr4j_objective(prec, etp, qobs, 0.3, 0.3, params,
                                      mesh=mesh, **kw)
     l_single = regional_gr4j_objective(prec, etp, qobs, 0.3, 0.3,

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import GR4J
-from rrmpg_tpu.ops import run_gr4j
-from rrmpg_tpu.tools import differential_evolution, random_search
+from rrmpg_jax.models import GR4J
+from rrmpg_jax.ops import run_gr4j
+from rrmpg_jax.tools import differential_evolution, random_search
 
 
 def test_de_ignores_nan_candidates():
@@ -54,7 +54,7 @@ def test_gr4j_large_x4_not_truncated():
     assert np.allclose(qsim, np.asarray(q_ref))
 
     try:
-        from rrmpg_tpu import native
+        from rrmpg_jax import native
         if native.available():
             q_cpp, _, _ = native.oracle_gr4j(prec, etp, 0.0, 0.0, params)
             assert np.allclose(qsim, q_cpp)
@@ -72,23 +72,23 @@ def test_de_distinct_mutation_indices_still_converges():
 
 
 def test_pallas_engine_rejects_mesh():
-    # Round-2 review: the pallas simulate branches must refuse a mesh
-    # instead of silently running single-device.
-    from rrmpg_tpu.models import ABCModel
-    from rrmpg_tpu.parallel.mesh import default_mesh
+    # The pallas simulate branches must refuse a mesh instead of silently
+    # running single-device.
+    from rrmpg_jax.models import GR4J
+    from rrmpg_jax.parallel.mesh import default_mesh
 
     with pytest.raises(ValueError, match="mesh"):
-        ABCModel().simulate(np.ones(100), engine="pallas", interpret=True,
-                            mesh=default_mesh())
+        GR4J().simulate(np.ones(100), np.ones(100), engine="pallas",
+                        interpret=True, mesh=default_mesh())
 
 
 def test_load_basins_rejects_disjoint_periods(tmp_path):
     import shutil
     from pathlib import Path
 
-    from rrmpg_tpu.data import CAMELSLoader
+    from rrmpg_jax.data import CAMELSLoader
 
-    src = Path('rrmpg_tpu/data/camels')
+    src = Path('rrmpg_jax/data/camels')
     fname = '01031500_lump_cida_forcing_leap.txt'
     oname = '01031500_05_model_output.txt'
     # basin A = bundled years; basin B = same data shifted 400 years

@@ -1,7 +1,7 @@
 """SCE-UA optimizer: convergence, accounting, quarantine, sharding.
 
 The device-resident shuffled-complex-evolution calibrator
-(rrmpg_tpu/tools/sce.py) is validated on standard optimization test
+(rrmpg_jax/tools/sce.py) is validated on standard optimization test
 functions, checked for exact nfev accounting and determinism, and its
 class-level dispatch (``model.fit(method='sce')``) is exercised on a
 synthetic-truth calibration.
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools.calibration import minimize
-from rrmpg_tpu.tools.sce import sce_ua
+from rrmpg_jax.tools.calibration import minimize
+from rrmpg_jax.tools.sce import sce_ua
 
 from lane import tol
 
@@ -105,7 +105,7 @@ class TestSceUa:
         np.testing.assert_allclose(res.x, [1.0, 1.0], atol=1e-2)
 
     def test_mesh_sharded_identical(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         mesh = default_mesh()
         ref = sce_ua(rosen, BOUNDS2, seed=0, maxiter=25, n_complexes=8)
@@ -118,7 +118,7 @@ class TestSceUa:
         assert res.fun == pytest.approx(ref.fun, rel=1e-12)
 
     def test_mesh_batched_rejected(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         with pytest.raises(ValueError, match="vmappable"):
             sce_ua(lambda X: X[:, 0], BOUNDS2, batched=True,
@@ -140,8 +140,8 @@ class TestClassLevelSce:
         """SCE-UA drives the fused Pallas MSE kernel via batched=True
         (interpret mode on CPU) and reaches the same optimum region as
         the vmapped XLA objective."""
-        from rrmpg_tpu.models import GR4J
-        from rrmpg_tpu.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
+        from rrmpg_jax.models import GR4J
+        from rrmpg_jax.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
 
         rng = np.random.default_rng(0)
         T = 128
@@ -167,7 +167,7 @@ class TestClassLevelSce:
 
     def test_gr4j_fit_method_sce(self):
         """model.fit(method='sce') recovers a synthetic truth."""
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(0)
         T = 365

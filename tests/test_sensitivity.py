@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools.sensitivity import morris_screening, sobol_indices
+from rrmpg_jax.tools.sensitivity import morris_screening, sobol_indices
 
 from lane import tol
 
@@ -77,7 +77,7 @@ class TestSobolIshigami:
         np.testing.assert_allclose(r1.st, r2.st, rtol=1e-12)
 
     def test_mesh_sharded_equals_unsharded(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         mesh = default_mesh()
         r1 = sobol_indices(ishigami, ISHIGAMI_BOUNDS, n=256, seed=5,
@@ -154,7 +154,7 @@ class TestMorris:
         assert np.all(res.mu_star_conf > 0)
 
     def test_trajectory_points_in_bounds(self):
-        from rrmpg_tpu.tools.sensitivity import _morris_trajectories
+        from rrmpg_jax.tools.sensitivity import _morris_trajectories
 
         rng = np.random.default_rng(0)
         for p in (2, 4, 8):
@@ -212,9 +212,9 @@ class TestHydrologyModel:
         """The advertised fused-kernel path: a (P, dim) -> (P,) Pallas
         MSE objective plugs into both GSA entry points via batched=True
         (interpret mode on CPU) and matches the vmapped XLA objective."""
-        from rrmpg_tpu.ops.gr4j import run_gr4j
-        from rrmpg_tpu.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
-        from rrmpg_tpu.utils.metrics import mse
+        from rrmpg_jax.ops.gr4j import run_gr4j
+        from rrmpg_jax.ops.pallas_gr4j import gr4j_ensemble_mse_pallas
+        from rrmpg_jax.utils.metrics import mse
 
         rng = np.random.default_rng(0)
         T = 128
@@ -252,7 +252,7 @@ class TestHydrologyModel:
                                    rtol=tol(1e-5, 3e-3))
 
     def test_morris_mesh_sharded_equals_unsharded(self):
-        from rrmpg_tpu.parallel.mesh import default_mesh
+        from rrmpg_jax.parallel.mesh import default_mesh
 
         r1 = morris_screening(ishigami, ISHIGAMI_BOUNDS,
                               num_trajectories=16, seed=5, bootstrap=0)
@@ -264,9 +264,9 @@ class TestHydrologyModel:
 
     def test_gr4j_mse_sensitivity(self):
         """End-to-end: which GR4J parameters does the MSE respond to?"""
-        from rrmpg_tpu.models import GR4J
-        from rrmpg_tpu.ops.gr4j import run_gr4j
-        from rrmpg_tpu.utils.metrics import mse
+        from rrmpg_jax.models import GR4J
+        from rrmpg_jax.ops.gr4j import run_gr4j
+        from rrmpg_jax.utils.metrics import mse
 
         rng = np.random.default_rng(0)
         T = 365

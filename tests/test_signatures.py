@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.utils.signatures import (
+from rrmpg_jax.utils.signatures import (
     fdc_fhv,
     fdc_flv,
     fdc_fms,
@@ -115,7 +115,7 @@ class TestModelIntegration:
         """Signatures evaluate a whole MC ensemble in one batched call
         and respond in the expected direction to a known structural
         change (raised percolation -> flashier, weaker baseflow)."""
-        from rrmpg_tpu.models import GR4J
+        from rrmpg_jax.models import GR4J
 
         rng = np.random.default_rng(1)
         T = 730

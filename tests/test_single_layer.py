@@ -8,8 +8,8 @@ this branch is not covered by the golden CSVs (which all use 5 bands).
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import Cemaneige, CemaneigeGR4J
-from rrmpg_tpu.ops import calculate_solid_fraction, run_cemaneige
+from rrmpg_jax.models import Cemaneige, CemaneigeGR4J
+from rrmpg_jax.ops import calculate_solid_fraction, run_cemaneige
 
 
 def _met(T=300, seed=8):

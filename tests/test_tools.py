@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.models import ABCModel, GR4J
-from rrmpg_tpu.tools import differential_evolution, monte_carlo, random_search
+from rrmpg_jax.models import ABCModel, GR4J
+from rrmpg_jax.tools import differential_evolution, monte_carlo, random_search
 
 
 def test_monte_carlo_shapes():
@@ -54,8 +54,8 @@ def test_de_minimizes_quadratic():
 
 @pytest.mark.slow
 def test_de_recovers_abc_params():
-    from rrmpg_tpu.utils.metrics import mse as jmse
-    from rrmpg_tpu.ops import run_abcmodel_pscan
+    from rrmpg_jax.utils.metrics import mse as jmse
+    from rrmpg_jax.ops import run_abcmodel_pscan
     import jax.numpy as jnp
 
     rng = np.random.default_rng(42)
@@ -116,7 +116,7 @@ def test_monte_carlo_multiple_metrics():
                          metrics=('mse', 'nse', 'kge'))
     for name in ('mse', 'nse', 'kge'):
         assert result[name].shape == (16,)
-    from rrmpg_tpu.utils import calc_kge, calc_nse
+    from rrmpg_jax.utils import calc_kge, calc_nse
     assert np.isclose(result['nse'][3], calc_nse(qobs, result['qsim'][:, 3]))
     assert np.isclose(result['kge'][3], calc_kge(qobs, result['qsim'][:, 3]))
 
@@ -127,7 +127,7 @@ def test_monte_carlo_signature_metrics():
     qobs = np.random.uniform(0.5, 2, 200)
     result = monte_carlo(model, 8, qobs=qobs, prec=prec,
                          metrics=('fhv', 'flv', 'fms'))
-    from rrmpg_tpu.utils.signatures import fdc_fhv
+    from rrmpg_jax.utils.signatures import fdc_fhv
     for name in ('fhv', 'flv', 'fms'):
         assert result[name].shape == (8,)
         assert np.isfinite(result[name]).all()
@@ -143,7 +143,7 @@ def test_monte_carlo_unknown_metric():
 
 def test_gradient_descent_quadratic():
     import jax.numpy as jnp
-    from rrmpg_tpu.tools import gradient_descent
+    from rrmpg_jax.tools import gradient_descent
 
     target = jnp.asarray([0.3, -1.2])
 
@@ -159,9 +159,9 @@ def test_gradient_descent_quadratic():
 @pytest.mark.slow
 def test_gradient_descent_refines_de_result():
     import jax.numpy as jnp
-    from rrmpg_tpu.ops import run_gr4j
-    from rrmpg_tpu.tools import gradient_descent
-    from rrmpg_tpu.utils.metrics import mse as jmse
+    from rrmpg_jax.ops import run_gr4j
+    from rrmpg_jax.tools import gradient_descent
+    from rrmpg_jax.utils.metrics import mse as jmse
 
     rng = np.random.default_rng(6)
     prec = jnp.asarray(rng.uniform(0, 15, 300))
@@ -184,7 +184,7 @@ def test_gradient_descent_refines_de_result():
 def test_random_search_batched_objective():
     import jax
     import jax.numpy as jnp
-    from rrmpg_tpu.tools import random_search
+    from rrmpg_jax.tools import random_search
 
     def batch_objective(X):          # (n, 2) -> (n,)
         return jnp.sum(X ** 2, axis=1)
@@ -200,7 +200,7 @@ def test_random_search_batched_objective():
 
 def test_de_polish_never_worsens():
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     target = jnp.asarray([0.4, -0.7])
     bounds = [(-2, 2), (-2, 2)]
@@ -218,7 +218,7 @@ def test_de_polish_never_worsens():
 
 @pytest.mark.slow
 def test_gr4j_fit_polish_improves_short_run():
-    from rrmpg_tpu.models import GR4J
+    from rrmpg_jax.models import GR4J
 
     rng = np.random.default_rng(12)
     prec = rng.uniform(0, 12, 300)
@@ -235,7 +235,7 @@ def test_nonfinite_members_diagnostic():
     """Members with NaN losses are quarantined by the DE and retrievable
     from the result for debugging."""
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     def obj(x):
         # NaN wherever x0 < 0 -- roughly half the search box.
@@ -259,7 +259,7 @@ def test_de_never_selects_infinite_member():
     """Non-finite is more than NaN: +-inf members must also be quarantined
     from best-member selection and incumbent shielding."""
     import jax.numpy as jnp
-    from rrmpg_tpu.tools.calibration import differential_evolution
+    from rrmpg_jax.tools.calibration import differential_evolution
 
     def obj(x):
         val = jnp.sum((x - 0.5) ** 2)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rrmpg_tpu.tools.uncertainty import glue_weights, prediction_limits
+from rrmpg_jax.tools.uncertainty import glue_weights, prediction_limits
 
 
 def test_glue_weights_behavioral_cut():
@@ -44,8 +44,8 @@ def test_prediction_limits_rejects_empty_behavioral():
 
 
 def test_glue_end_to_end_with_monte_carlo():
-    from rrmpg_tpu.models import ABCModel
-    from rrmpg_tpu.tools import monte_carlo
+    from rrmpg_jax.models import ABCModel
+    from rrmpg_jax.tools import monte_carlo
 
     truth = ABCModel(params={'a': 0.4, 'b': 0.2, 'c': 0.3})
     prec = np.random.default_rng(1).uniform(0, 15, 400)

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rrmpg_tpu.ops.gr4j import (GR4JState, gr4j_initial_state, run_gr4j,
+from rrmpg_jax.ops.gr4j import (GR4JState, gr4j_initial_state, run_gr4j,
                                 run_gr4j_warm)
-from rrmpg_tpu.ops.hbvedu import run_hbvedu, run_hbvedu_warm
+from rrmpg_jax.ops.hbvedu import run_hbvedu, run_hbvedu_warm
 
 from lane import tol
 
@@ -98,7 +98,7 @@ def test_hbv_split_invariance(split):
 
 
 def test_cemaneige_split_invariance():
-    from rrmpg_tpu.ops.cemaneige import run_cemaneige, run_cemaneige_warm
+    from rrmpg_jax.ops.cemaneige import run_cemaneige, run_cemaneige_warm
 
     rng = np.random.default_rng(6)
     T, L = 300, 4
@@ -125,7 +125,7 @@ def test_cemaneige_split_invariance():
 
 
 def test_cemaneigehyst_split_invariance():
-    from rrmpg_tpu.ops.cemaneige import (run_cemaneigehyst,
+    from rrmpg_jax.ops.cemaneige import (run_cemaneigehyst,
                                          run_cemaneigehyst_warm)
 
     rng = np.random.default_rng(7)
@@ -180,7 +180,7 @@ def _swe_at(prec, temp, frac, params, psol, split, cold_outputs):
     # replay forward with the warm kernel.  Cold t=0 used
     # snow_pack_init=1.0; the accumulation branch decides from the t=0
     # snow balance with swe_max_prev=0.
-    from rrmpg_tpu.ops.cemaneige import run_cemaneigehyst_warm
+    from rrmpg_jax.ops.cemaneige import run_cemaneigehyst_warm
 
     out, G, eTG, sca = cold_outputs
     snow0 = (prec * frac)[0]
@@ -226,9 +226,9 @@ def test_gr4j_warm_split_fuzz():
 
 @pytest.mark.slow
 def test_composition_warm_split_invariance():
-    from rrmpg_tpu.ops.compositions import (run_cemaneigegr4j_warm,
+    from rrmpg_jax.ops.compositions import (run_cemaneigegr4j_warm,
                                             run_cemaneigehystgr4j_warm)
-    from rrmpg_tpu.ops.gr4j import gr4j_initial_state
+    from rrmpg_jax.ops.gr4j import gr4j_initial_state
 
     rng = np.random.default_rng(9)
     T, L = 250, 3
